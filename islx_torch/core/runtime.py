@@ -1,0 +1,68 @@
+"""Device choice and the precision the port's comparisons rely on."""
+from __future__ import annotations
+
+import contextlib
+import os
+
+import torch
+
+# The int8 W8A8 trunks (islx/models/quant.py) are the port's next slice.
+INT8_SLICE = ("int8 W8A8 trunks are not ported yet: they need the CUDA int8 "
+              "conv + requantize kernel of the next slice of the port "
+              "(ROADMAP.md §2 item 2)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless the caller
+    asks for another. Raises when CUDA is asked for (or defaulted to) and
+    no GPU is present: an entry point never carries on on the CPU unless
+    the caller asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "islx_torch runs on a CUDA GPU and none is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def refuse_int8() -> None:
+    """Raise where ``ISLX_INT8`` asks for the int8 trunks."""
+    env = os.environ.get("ISLX_INT8")
+    if env is not None and env not in ("0", ""):
+        raise NotImplementedError(f"ISLX_INT8={env}: {INT8_SLICE}")
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` for a host number ``d``, correctly rounded on every device.
+
+    A CUDA kernel dividing by a CPU scalar multiplies by the scalar's
+    rounded reciprocal, which can differ in the last bit from the true
+    quotient that the JAX code computes; a 0-dim tensor on x's device takes
+    the true division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def rdiv(d: float, x: torch.Tensor) -> torch.Tensor:
+    """``d / x`` for a host number ``d``, correctly rounded (``float /
+    tensor`` is evaluated as ``reciprocal(x) * d``)."""
+    return torch.full((), d, dtype=x.dtype, device=x.device) / x
+
+
+@contextlib.contextmanager
+def true_f32():
+    """Float32 convolutions and matmuls in full f32 inside the block.
+
+    cuDNN runs f32 convolutions in TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), which keeps ~3 decimal digits;
+    the JAX reference computes them in f32. CUDA matmuls are already full
+    f32 by default (``torch.backends.cuda.matmul.allow_tf32`` is False);
+    the block sets both and restores them after."""
+    conv, mm = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

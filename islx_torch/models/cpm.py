@@ -1,0 +1,290 @@
+"""Convolutional Pose Machine nets (BODY_25 and the hand CPM) in PyTorch.
+
+Port of ``islx/models/cpm.py`` (float path). Layer names equal the caffe
+blob names, so weights carry across by name. Public inputs and outputs keep
+the JAX package's NHWC layout; inside, activations are NCHW tensors in
+``channels_last`` memory, which is the same bytes as NHWC.
+
+Epilogue order follows the reference exactly: a non-head conv accumulates
+in f32, rounds to the compute dtype, then adds the bias and activates in
+that dtype; a head conv (``Conv.head``, the 1x1 stage outputs the peak and
+PAF math reads) keeps an f32 epilogue. In bf16 a head conv therefore runs
+on the bf16-valued input and weight upcast to f32, which is the f32
+accumulation of the same products.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from islx_torch.core.runtime import true_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv:
+    name: str
+    cin: int
+    cout: int
+    k: int
+    pad: int
+    act: str  # 'relu' | 'prelu' | 'none'
+    head: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Pool:
+    k: int = 2
+    s: int = 2
+
+
+Layer = Union[Conv, Pool]
+
+# ---------------------------------------------------------------------------
+# Layer spec tables (islx/models/cpm.py:66-199). Names are caffe blob names.
+# ---------------------------------------------------------------------------
+
+
+def _vgg_trunk(prelu_tail: bool) -> List[Layer]:
+    act_tail = "prelu" if prelu_tail else "relu"
+    return [
+        Conv("conv1_1", 3, 64, 3, 1, "relu"),
+        Conv("conv1_2", 64, 64, 3, 1, "relu"),
+        Pool(),
+        Conv("conv2_1", 64, 128, 3, 1, "relu"),
+        Conv("conv2_2", 128, 128, 3, 1, "relu"),
+        Pool(),
+        Conv("conv3_1", 128, 256, 3, 1, "relu"),
+        Conv("conv3_2", 256, 256, 3, 1, "relu"),
+        Conv("conv3_3", 256, 256, 3, 1, "relu"),
+        Conv("conv3_4", 256, 256, 3, 1, "relu"),
+        Pool(),
+        Conv("conv4_1", 256, 512, 3, 1, "relu"),
+        Conv("conv4_2", 512, 512, 3, 1, act_tail),
+        Conv("conv4_3_CPM", 512, 256, 3, 1, act_tail),
+        Conv("conv4_4_CPM", 256, 128, 3, 1, act_tail),
+    ]
+
+
+def _b25_dense_block(i: int, s: int, L: str, cin: int, c: int) -> List[Conv]:
+    base = f"Mconv{i}_stage{s}_{L}"
+    return [
+        Conv(f"{base}_0", cin, c, 3, 1, "prelu"),
+        Conv(f"{base}_1", c, c, 3, 1, "prelu"),
+        Conv(f"{base}_2", c, c, 3, 1, "prelu"),
+    ]
+
+
+def _b25_stage(s: int, L: str, cin: int, c: int, c6: int, cout: int
+               ) -> Dict[str, List[Conv]]:
+    blocks = {f"Mconv1_stage{s}_{L}": _b25_dense_block(1, s, L, cin, c)}
+    for i in range(2, 6):
+        blocks[f"Mconv{i}_stage{s}_{L}"] = _b25_dense_block(i, s, L, 3 * c, c)
+    blocks[f"Mconv6_7_stage{s}_{L}"] = [
+        Conv(f"Mconv6_stage{s}_{L}", 3 * c, c6, 1, 0, "prelu"),
+        Conv(f"Mconv7_stage{s}_{L}", c6, cout, 1, 0, "none", head=True),
+    ]
+    return blocks
+
+
+def body25_spec() -> Dict[str, object]:
+    """Full BODY_25 spec: 4 PAF stages (L2) + 2 heatmap stages (L1)."""
+    stages: Dict[str, List[Conv]] = {}
+    stages.update(_b25_stage(0, "L2", 128, 96, 256, 52))
+    for s in range(1, 4):
+        stages.update(_b25_stage(s, "L2", 180, 128, 512, 52))
+    stages.update(_b25_stage(0, "L1", 180, 96, 256, 26))
+    stages.update(_b25_stage(1, "L1", 206, 128, 512, 26))
+    return {"trunk": _vgg_trunk(prelu_tail=True), "stages": stages}
+
+
+def hand_spec() -> Dict[str, object]:
+    """CPM hand spec: VGG trunk + stage1 + 5 refinement stages."""
+    trunk: List[Layer] = [
+        Conv("conv1_1", 3, 64, 3, 1, "relu"),
+        Conv("conv1_2", 64, 64, 3, 1, "relu"),
+        Pool(),
+        Conv("conv2_1", 64, 128, 3, 1, "relu"),
+        Conv("conv2_2", 128, 128, 3, 1, "relu"),
+        Pool(),
+        Conv("conv3_1", 128, 256, 3, 1, "relu"),
+        Conv("conv3_2", 256, 256, 3, 1, "relu"),
+        Conv("conv3_3", 256, 256, 3, 1, "relu"),
+        Conv("conv3_4", 256, 256, 3, 1, "relu"),
+        Pool(),
+        Conv("conv4_1", 256, 512, 3, 1, "relu"),
+        Conv("conv4_2", 512, 512, 3, 1, "relu"),
+        Conv("conv4_3", 512, 512, 3, 1, "relu"),
+        Conv("conv4_4", 512, 512, 3, 1, "relu"),
+        Conv("conv5_1", 512, 512, 3, 1, "relu"),
+        Conv("conv5_2", 512, 512, 3, 1, "relu"),
+        Conv("conv5_3_CPM", 512, 128, 3, 1, "relu"),
+    ]
+    stage1 = [
+        Conv("conv6_1_CPM", 128, 512, 1, 0, "relu"),
+        Conv("conv6_2_CPM", 512, 22, 1, 0, "none", head=True),
+    ]
+    stages = {}
+    for i in range(2, 7):
+        stages[f"stage{i}"] = [
+            Conv(f"Mconv1_stage{i}", 150, 128, 7, 3, "relu"),
+            Conv(f"Mconv2_stage{i}", 128, 128, 7, 3, "relu"),
+            Conv(f"Mconv3_stage{i}", 128, 128, 7, 3, "relu"),
+            Conv(f"Mconv4_stage{i}", 128, 128, 7, 3, "relu"),
+            Conv(f"Mconv5_stage{i}", 128, 128, 7, 3, "relu"),
+            Conv(f"Mconv6_stage{i}", 128, 128, 1, 0, "relu"),
+            Conv(f"Mconv7_stage{i}", 128, 22, 1, 0, "none", head=True),
+        ]
+    return {"trunk": trunk, "stage1": stage1, "stages": stages}
+
+
+SPECS = {"body25": body25_spec, "hand": hand_spec}
+
+
+def _iter_convs(node):
+    if isinstance(node, Conv):
+        yield node
+    elif isinstance(node, (list, tuple)):
+        for x in node:
+            yield from _iter_convs(x)
+    elif isinstance(node, dict):
+        for x in node.values():
+            yield from _iter_convs(x)
+
+
+def conv_layers(model_type: str) -> List[Conv]:
+    return list(_iter_convs(SPECS[model_type]()))
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class ConvLayer(nn.Module):
+    """One conv + bias + activation with the reference's epilogue order.
+
+    ``weight`` is OIHW, stored in the compute dtype once the net is cast
+    (:meth:`CPM.cast`); ``bias`` and the PReLU slope stay f32 and are
+    rounded to the epilogue dtype at use, as the JAX code does."""
+
+    def __init__(self, c: Conv):
+        super().__init__()
+        self.spec = c
+        self.weight = nn.Parameter(torch.zeros(c.cout, c.cin, c.k, c.k),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c.cout), requires_grad=False)
+        self.prelu = (nn.Parameter(torch.full((c.cout,), 0.25),
+                                   requires_grad=False)
+                      if c.act == "prelu" else None)
+
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype
+                ) -> torch.Tensor:
+        c = self.spec
+        w = self.weight.to(compute_dtype)
+        xin = x.to(compute_dtype)
+        if c.head:
+            epi = torch.float32
+            out = F.conv2d(xin.float(), w.float(), padding=c.pad)
+        else:
+            epi = compute_dtype
+            out = F.conv2d(xin, w, padding=c.pad)
+        out = out + self.bias.to(epi).view(1, -1, 1, 1)
+        if c.act == "relu":
+            out = torch.relu(out)
+        elif c.act == "prelu":
+            a = self.prelu.to(epi).view(1, -1, 1, 1)
+            out = torch.where(out >= 0, out, a * out)
+        return out
+
+
+class CPM(nn.Module):
+    """A CPM net (``"body25"`` or ``"hand"``) with caffe-named layers.
+
+    ``forward`` takes NHWC input and returns NHWC f32 maps at /8:
+    body25 -> (paf [B,h,w,52], heat [B,h,w,26]); hand -> heat [B,h,w,22].
+    """
+
+    def __init__(self, model_type: str):
+        super().__init__()
+        self.model_type = model_type
+        self.spec = SPECS[model_type]()
+        self.layers = nn.ModuleDict(
+            {c.name: ConvLayer(c) for c in conv_layers(model_type)})
+
+    def load_params(self, state: Dict[str, Dict[str, torch.Tensor]]
+                    ) -> "CPM":
+        """Copy a port weight state ({name: {"w" OIHW, "b"[, "p"]}})."""
+        for name, layer in self.layers.items():
+            entry = state[name]
+            layer.weight.data = entry["w"].to(torch.float32).clone()
+            layer.bias.data = entry["b"].to(torch.float32).clone()
+            if layer.prelu is not None:
+                layer.prelu.data = entry["p"].to(torch.float32).clone()
+        return self
+
+    def cast(self, dtype: torch.dtype) -> "CPM":
+        """Store conv weights in the compute dtype once (channels_last),
+        so a step converts no weights; biases and slopes stay f32."""
+        for layer in self.layers.values():
+            layer.weight.data = layer.weight.data.to(dtype).contiguous(
+                memory_format=torch.channels_last)
+        return self
+
+    def _seq(self, x, layers: Sequence[Layer], cd):
+        for layer in layers:
+            if isinstance(layer, Pool):
+                x = F.max_pool2d(x, layer.k, layer.s)
+            else:
+                x = self.layers[layer.name](x, cd)
+        return x
+
+    def _dense_block(self, x, convs: Sequence[Conv], cd):
+        outs = []
+        for c in convs:
+            x = self.layers[c.name](x, cd)
+            outs.append(x)
+        return torch.cat(outs, dim=1)
+
+    def _b25_stage(self, x, s: int, L: str, cd):
+        st = self.spec["stages"]
+        for i in range(1, 6):
+            x = self._dense_block(x, st[f"Mconv{i}_stage{s}_{L}"], cd)
+        return self._seq(x, st[f"Mconv6_7_stage{s}_{L}"], cd)
+
+    def body25(self, x: torch.Tensor, cd) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """NCHW -> (paf, heat) NCHW; wiring of src/model.py:179-207."""
+        out0 = self._seq(x, self.spec["trunk"], cd)
+        tout, paf = out0, None
+        for s in range(4):
+            paf = self._b25_stage(tout, s, "L2", cd)
+            tout = torch.cat([out0, paf], dim=1)
+        heat0 = self._b25_stage(tout, 0, "L1", cd)
+        tout = torch.cat([out0, heat0, paf], dim=1)
+        return paf, self._b25_stage(tout, 1, "L1", cd)
+
+    def hand(self, x: torch.Tensor, cd, stages: int = 6) -> torch.Tensor:
+        """NCHW -> heat NCHW of stage ``stages`` (1..6)."""
+        if not 1 <= stages <= 6:
+            raise ValueError(f"hand stages must be in [1, 6], got {stages}")
+        trunk = self._seq(x, self.spec["trunk"], cd)
+        out = self._seq(trunk, self.spec["stage1"], cd)
+        for i in range(2, stages + 1):
+            out = self._seq(torch.cat([out, trunk], dim=1),
+                            self.spec["stages"][f"stage{i}"], cd)
+        return out
+
+    def forward(self, x_nhwc: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32,
+                stages: int = 6):
+        # an NHWC tensor permuted to NCHW is channels_last already
+        x = x_nhwc.permute(0, 3, 1, 2)
+        with true_f32():
+            if self.model_type == "body25":
+                paf, heat = self.body25(x, compute_dtype)
+                return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
+            return self.hand(x, compute_dtype, stages).permute(0, 2, 3, 1)

@@ -1,0 +1,136 @@
+"""PAF limb scoring on the /8 grid + on-device compaction (port of
+``islx/ops/paf.py``: ``score_limbs_cell`` with int8-counted cells and
+``compact_connections``), batched over frames.
+
+Every K x K candidate pair of a limb samples ``mid_num`` points on its line;
+each sample lands on a cell of the net-resolution PAF grid. The line
+integral regroups by cell: ``count[pair, cell]`` times the score surface
+``S[pair, cell] = unit . paf[cell]``, and the hit count sums ``count`` where
+``S > thre2``. Counts are integers (<= mid_num); they are built with
+``scatter_add_``, which gives the same integers as the JAX one-hot sum.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from islx_torch.core.runtime import div, rdiv
+
+# Limb connection tables (reference: src/body.py:109-126).
+LIMB_SEQ_BODY25 = np.array(
+    [[1, 0], [1, 2], [2, 3], [3, 4], [1, 5], [5, 6], [6, 7], [1, 8], [8, 9],
+     [9, 10], [10, 11], [8, 12], [12, 13], [13, 14], [0, 15], [0, 16],
+     [15, 17], [16, 18], [11, 24], [11, 22], [14, 21], [14, 19], [22, 23],
+     [19, 20]], dtype=np.int32)
+MAP_IDX_BODY25 = np.array(
+    [[30, 31], [14, 15], [16, 17], [18, 19], [22, 23], [24, 25], [26, 27],
+     [0, 1], [6, 7], [2, 3], [4, 5], [8, 9], [10, 11], [12, 13], [32, 33],
+     [34, 35], [36, 37], [38, 39], [50, 51], [46, 47], [44, 45], [40, 41],
+     [48, 49], [42, 43]], dtype=np.int32)
+
+LIMB_SEQ_COCO = np.array(
+    [[1, 2], [1, 5], [2, 3], [3, 4], [5, 6], [6, 7], [1, 8], [8, 9], [9, 10],
+     [1, 11], [11, 12], [12, 13], [1, 0], [0, 14], [14, 16], [0, 15],
+     [15, 17], [2, 16], [5, 17]], dtype=np.int32)
+MAP_IDX_COCO = np.array(
+    [[12, 13], [20, 21], [14, 15], [16, 17], [22, 23], [24, 25], [0, 1],
+     [2, 3], [4, 5], [6, 7], [8, 9], [10, 11], [28, 29], [30, 31], [34, 35],
+     [32, 33], [36, 37], [18, 19], [26, 27]], dtype=np.int32)
+
+LIMB_TABLES = {
+    "body25": (LIMB_SEQ_BODY25, MAP_IDX_BODY25),
+    "coco": (LIMB_SEQ_COCO, MAP_IDX_COCO),
+}
+
+
+class LimbScores(NamedTuple):
+    """score [B,L,K,K] f32 (score with distance prior); ok [B,L,K,K] bool."""
+
+    score: torch.Tensor
+    ok: torch.Tensor
+
+
+class CompactConnections(NamedTuple):
+    """Per-limb candidate pairs sorted score-descending, ties in (i, j)
+    order. pair [B,L,M] int32 (i*K + j); score [B,L,M] f32 (-inf where not
+    ok); ok [B,L,M] bool."""
+
+    pair: torch.Tensor
+    score: torch.Tensor
+    ok: torch.Tensor
+
+
+def _pair_samples8(peaks_xy: torch.Tensor, peaks_valid: torch.Tensor,
+                   limb: tuple, stride: int, h8: int, w8: int, mid_num: int):
+    """One limb's K x K pair geometry over a batch: -> (unit [B,K,K,2],
+    norm [B,K,K], valid [B,K,K], cell [B,K,K,mid] int64) — the nearest /8
+    cell of each line sample (src = (p+.5)/stride - .5)."""
+    a_xy = peaks_xy[:, limb[0]].float()                    # [B,K,2]
+    b_xy = peaks_xy[:, limb[1]].float()
+    valid = peaks_valid[:, limb[0]][:, :, None] & peaks_valid[:, limb[1]][
+        :, None, :]
+    vec = b_xy[:, None, :, :] - a_xy[:, :, None, :]        # [B,K,K,2]
+    norm = torch.clamp_min(torch.sqrt((vec * vec).sum(-1)), 0.001)
+    unit = vec / norm[..., None]
+    t = torch.linspace(0.0, 1.0, mid_num, device=peaks_xy.device)
+    pts = (a_xy[:, :, None, None, :]
+           + vec[:, :, :, None, :] * t[None, None, None, :, None])
+    cx = torch.clamp(torch.round(div(pts[..., 0] + 0.5, stride) - 0.5),
+                     0, w8 - 1).long()
+    cy = torch.clamp(torch.round(div(pts[..., 1] + 0.5, stride) - 0.5),
+                     0, h8 - 1).long()
+    return unit, norm, valid, cy * w8 + cx
+
+
+def score_limbs_cell(paf8: torch.Tensor, peaks_xy: torch.Tensor,
+                     peaks_valid: torch.Tensor, limb_seq: np.ndarray,
+                     map_idx: np.ndarray, stride: int = 8,
+                     thre2: float = 0.05, mid_num: int = 10,
+                     orig_h: float = None) -> LimbScores:
+    """paf8 [B,h8,w8,P], peaks_xy [B,C,K,2], peaks_valid [B,C,K] -> all
+    K x K pair scores of every limb. One limb at a time, as the JAX code
+    maps over limbs, to bound the [B, K*K, cells] count tensor."""
+    bsz, h8, w8, _ = paf8.shape
+    if orig_h is None:
+        orig_h = h8 * stride
+    cells = h8 * w8
+    k = peaks_xy.shape[2]
+    paf_flat = paf8.reshape(bsz, cells, -1).float()
+    swdps, oks = [], []
+    for limb, chans in zip(np.asarray(limb_seq).tolist(),
+                           np.asarray(map_idx).tolist()):
+        unit, norm, valid, cell = _pair_samples8(
+            peaks_xy, peaks_valid, limb, stride, h8, w8, mid_num)
+        unit = unit.reshape(bsz, k * k, 2)
+        cell = cell.reshape(bsz, k * k, mid_num)
+        count = torch.zeros((bsz, k * k, cells), dtype=torch.int32,
+                            device=paf8.device)
+        count.scatter_add_(2, cell, torch.ones_like(cell, dtype=torch.int32))
+        ps = paf_flat[:, :, chans]                          # [B,cells,2]
+        s_cell = torch.matmul(unit, ps.transpose(1, 2))     # [B,K*K,cells]
+        score_sum = (count.float() * s_cell).sum(-1)
+        hits = torch.where(s_cell > thre2, count,
+                           torch.zeros_like(count)).sum(-1)
+        prior = torch.clamp_max(rdiv(0.5 * orig_h, norm) - 1.0, 0.0)
+        swdp = div(score_sum, mid_num) + prior.reshape(bsz, k * k)
+        ok = (hits > 0.8 * mid_num) & (swdp > 0) & valid.reshape(bsz, k * k)
+        swdps.append(swdp.reshape(bsz, k, k))
+        oks.append(ok.reshape(bsz, k, k))
+    return LimbScores(score=torch.stack(swdps, 1), ok=torch.stack(oks, 1))
+
+
+def compact_connections(ls: LimbScores, m: int = 48) -> CompactConnections:
+    """Each limb's K*K pair scores sorted descending, top ``m`` kept.
+
+    ``lax.top_k`` in the JAX code puts the lower index first on ties (the
+    reference's stable sort order); ``torch.topk`` promises no tie order on
+    CUDA, so this is a stable descending sort sliced to ``m``."""
+    bsz, l, k, _ = ls.score.shape
+    neg_inf = torch.full_like(ls.score, -float("inf"))
+    masked = torch.where(ls.ok, ls.score, neg_inf).reshape(bsz, l, k * k)
+    vals, order = torch.sort(masked, dim=-1, descending=True, stable=True)
+    vals = vals[..., :m]
+    return CompactConnections(pair=order[..., :m].to(torch.int32),
+                              score=vals, ok=vals != -float("inf"))

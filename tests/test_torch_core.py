@@ -1,0 +1,185 @@
+"""islx_torch package contract (CPU): the copied configs equal islx's, the
+weight carry-across and loaders, the entry points' device and int8 rules,
+and that nothing in the port imports JAX or islx."""
+import dataclasses
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from islx.core import config as JCfg
+from islx.core import weights as JW
+from islx.models import cpm as JC
+from islx_torch.core import config as TCfg
+from islx_torch.core import weights as W
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@pytest.mark.parametrize("name", ["PoseConfig", "HandConfig",
+                                  "DetectorConfig", "TranslatorConfig"])
+def test_config_dataclasses_equal(name):
+    j, t = getattr(JCfg, name), getattr(TCfg, name)
+    assert [f.name for f in dataclasses.fields(j)] == \
+        [f.name for f in dataclasses.fields(t)]
+    assert _fields(j()) == _fields(t())
+    if name == "PoseConfig":
+        for mt in ("body25", "coco"):
+            assert (j(model_type=mt).njoint, j(model_type=mt).npaf) == \
+                (t(model_type=mt).njoint, t(model_type=mt).npaf)
+
+
+@pytest.mark.parametrize("gates", [
+    None,
+    {"hand_160_default": "GO", "hand_160_stages": 5, "int8_default": "GO"},
+    {"hand_184_default": "NO-GO"},
+    {"hand_184_default": "GO", "hand_stages": 4, "int8_default": "NO-GO"},
+    {"hand_184_default": "UNEVALUABLE"},
+])
+def test_gated_configs_equal(tmp_path, monkeypatch, gates):
+    """HandConfig.gated / int8_gated resolve the same verdicts."""
+    for var in ("ISLX_HAND_SCALE", "ISLX_HAND_STAGES", "ISLX_INT8",
+                "ISLX_WEIGHTS_DIR"):
+        monkeypatch.delenv(var, raising=False)
+    if gates is not None:
+        (tmp_path / "gates.json").write_text(json.dumps(gates))
+    wdir = str(tmp_path)
+    (jc, jnote), (tc, tnote) = (JCfg.HandConfig.gated(wdir),
+                                TCfg.HandConfig.gated(wdir))
+    assert _fields(jc) == _fields(tc) and jnote == tnote
+    assert JCfg.int8_gated(wdir) == TCfg.int8_gated(wdir)
+    assert _fields(JCfg.HandConfig.production(0.25)) == \
+        _fields(TCfg.HandConfig.production(0.25))
+
+
+def _islx_params(model_type, seed=0):
+    return jax.tree.map(np.asarray,
+                        JC.init_params(model_type, jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("model_type", ["body25", "hand"])
+def test_weights_roundtrip(model_type, tmp_path):
+    """islx params -> port state (OIHW) -> back, the flat caffe dict both
+    ways, and islx .npz / reference .pt files load to the same state."""
+    p = _islx_params(model_type)
+    state = W.from_islx_params(p)
+    c = state["conv1_1"]["w"]
+    assert c.dtype == torch.float32 and c.shape == (64, 3, 3, 3)
+    back = W.to_islx_params(state)
+    for name in p:
+        for k in p[name]:
+            np.testing.assert_array_equal(p[name][k], back[name][k])
+    flat = JW.to_flat_dict(p)
+    assert flat.keys() == W.to_flat_dict(state).keys()
+    for k, v in W.to_flat_dict(state).items():
+        np.testing.assert_array_equal(flat[k], v)
+    from_flat = W.from_flat_dict(flat, model_type)
+
+    JW.save_npz(str(tmp_path / "w.npz"), p)
+    from_npz = W.load(str(tmp_path / "w.npz"), model_type)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in flat.items()},
+               str(tmp_path / "w.pt"))
+    from_pt = W.load(str(tmp_path / "w.pt"), model_type)
+    for other in (from_flat, from_npz, from_pt):
+        assert other.keys() == state.keys()
+        for name in state:
+            for k in state[name]:
+                assert torch.equal(state[name][k], other[name][k])
+    with pytest.raises(ValueError):
+        W.load(str(tmp_path / "w.caffemodel"), model_type)
+
+
+def test_init_params_seeded():
+    a, b = W.init_params("hand", 1), W.init_params("hand", 1)
+    c = W.init_params("hand", 2)
+    ref = _islx_params("hand")
+    assert a.keys() == ref.keys()
+    for name in a:
+        assert torch.equal(a[name]["w"], b[name]["w"])
+        assert tuple(a[name]["w"].shape) == \
+            ref[name]["w"].transpose(3, 2, 0, 1).shape
+    assert not torch.equal(a["conv1_1"]["w"], c["conv1_1"]["w"])
+    std = float(a["conv4_1"]["w"].std())
+    assert abs(std - np.sqrt(2.0 / (9 * 256))) < 0.1 * std
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|islx)\b(?!_torch)"
+                        r"|from\s+(jax|islx)(\.|\s)(?!.*islx_torch))",
+                        re.MULTILINE)
+
+
+def test_port_imports_no_jax_or_islx():
+    """No file of islx_torch, nor chip_smoke.py, imports jax or islx."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "islx_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        bad += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
+                for m in _FORBIDDEN.finditer(src)]
+    assert not bad, bad
+    # the pattern itself catches what it must
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "from islx.ops import paf", "import islx"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import islx_torch", "from islx_torch.ops import paf"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def _no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """Asked for no device (default cuda) on a machine with no GPU, the
+    entry points raise instead of carrying on on the CPU."""
+    from islx_torch.cli import translate as cli
+    from islx_torch.core.runtime import resolve_device
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.pipeline.translate import BatchedTranslatePipeline
+
+    _no_gpu(monkeypatch)
+    monkeypatch.delenv("ISLX_INT8", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedPosePipeline(W.init_params("body25"), W.init_params("hand"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedTranslatePipeline(batch=2)
+    video = tmp_path / "clip.mp4"
+    video.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([str(video)])
+
+
+def test_int8_is_refused(monkeypatch, tmp_path):
+    """ISLX_INT8=1, or a recorded int8 GO beside --hand-weights, raises
+    NotImplementedError naming the later slice; it never runs bf16."""
+    from islx_torch.cli import translate as cli
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+
+    monkeypatch.setenv("ISLX_INT8", "1")
+    with pytest.raises(NotImplementedError, match="int8"):
+        FusedPosePipeline({}, {}, device="cpu")
+    monkeypatch.delenv("ISLX_INT8")
+    (tmp_path / "gates.json").write_text(json.dumps({"int8_default": "GO"}))
+    hand = tmp_path / "hand.npz"
+    with pytest.raises(NotImplementedError, match="next slice"):
+        cli.refuse_gated_int8(str(hand))
+    cli.refuse_gated_int8(None)       # no checkpoint: no verdict borrowed
+    monkeypatch.setenv("ISLX_INT8", "0")
+    (tmp_path / "gates.json").write_text(json.dumps({"int8_default": "GO"}))
+    cli.refuse_gated_int8(str(hand))  # env 0 forces bf16, as in islx
