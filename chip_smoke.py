@@ -5,17 +5,28 @@
 Phases (any failure exits non-zero and the last line is never printed):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile the CUDA kernels from islx_torch/csrc (nvcc, sm_90a);
+2. build: compile the four CUDA kernels from islx_torch/csrc (one nvcc
+   per source, all started together, sm_90a);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (bit-equal), with median times over 20 launches;
+   the main paths' shapes (indices, labels and ok bits bit-equal), with
+   median times over 20 launches beside the bound; NMS+first-K on sparse
+   maps (whole planes read, peaks in the last rows) and dense ones (early
+   exit); the plain PAF scoring on the card bit-equal to the CPU's;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
    counters must show the main path went through every kernel; the same
    step in f32 on a small input must match the plain CPU path;
+4b. the fused-184s6 step again with ``pallas_nms=True`` (the NMS+first-K
+   kernel): its packed buffer's integer planes word-equal to phase 4's;
 5. translation: BatchedTranslatePipeline at batch 16 over 48 seeded
    720x1280 frames (bucket 184x328, I420), frames - 19 predictions;
-6. a JSON line of the kernels' numbers, then the card line again, then
+6. the reference-parity path at full width in f32: ``ISLSignPos(Body,
+   Hand)`` on a seeded 720x1280 frame and ``Hand`` on two 256x256 crops;
+   the launch counters must show the NMS+first-K, PAF-sampling and
+   labelling kernels on it; the same path on a small frame must match the
+   plain CPU path;
+7. a JSON line of the kernels' numbers, then the card line again, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
     python3 chip_smoke.py --profile
@@ -29,6 +40,7 @@ The script imports nothing of JAX or of the JAX package ``islx``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -88,6 +100,33 @@ def smooth_field(shape, gen, thre: float) -> torch.Tensor:
     return x
 
 
+def planted_field(shape, gen, thre: float, k: int, per_plane: int = 4
+                  ) -> torch.Tensor:
+    """smooth_field clipped to thre, so that only planted pixels peak: up to
+    ``per_plane`` isolated maxima above thre at seeded places in each plane
+    (the sparsity of a calibrated heatmap), plus late ones: the last pixel
+    of plane 0, a pixel of plane 1's last row, and k + 8 evenly spaced
+    maxima in plane 2, whose K-th falls late in the plane."""
+    bsz, c, h, w = shape
+    n = h * w
+    x = torch.clamp_max(smooth_field(shape, gen, thre), thre)
+    flat = x.view(bsz * c, n)
+    pos = torch.randint(0, n, (bsz * c, per_plane), device="cuda",
+                        generator=gen)
+    vals = thre + 0.01 + 0.01 * torch.rand((bsz * c, per_plane),
+                                           device="cuda", generator=gen)
+    keep = (torch.arange(per_plane, device="cuda")
+            < torch.randint(0, per_plane + 1, (bsz * c, 1), device="cuda",
+                            generator=gen))
+    flat.scatter_(1, pos, torch.where(keep, vals, flat.gather(1, pos)))
+    flat[0, n - 1] = thre + 0.02
+    flat[1 % (bsz * c), n - 1 - w // 2] = thre + 0.02
+    if bsz * c > 2:
+        spaced = torch.linspace(0, n - 1, k + 8, device="cuda").long()
+        flat[2, spaced] = thre + 0.02
+    return x
+
+
 def check_nms_kernel(shapes, thre: float = 0.5) -> list:
     from islx_torch.ops import nms_mask as N
 
@@ -122,6 +161,188 @@ def check_nms_kernel(shapes, thre: float = 0.5) -> list:
     return rows
 
 
+def bound(bytes_: float, ops: float) -> tuple:
+    """(bound ms, what bounds it) at the H100's f32 and memory peaks."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_nms_first_k(cases, k: int = 32) -> list:
+    """nms_first_k == its plain version (both border contracts), timed with
+    the contract's 0.0 border, or -inf where the case says so. A sparse
+    case plants a few peaks a plane (planted_field), so the kernel reads
+    whole planes and finds peaks in their last rows and last chunk; a dense
+    case fills K early in every plane (smooth_field)."""
+    from islx_torch.ops import nms_first_k as NF
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for shape, thre, border, sparse in cases:
+        bsz, c, h, w = shape
+        n = h * w
+        x = (planted_field(shape, gen, thre, k) if sparse
+             else smooth_field(shape, gen, thre))
+        want = NF.nms_first_k_plain(x, thre, k, border)
+        found = want < n
+        if not bool(found.any()):
+            raise SystemExit(f"nms_first_k check at {shape}: no peaks")
+        kth = want[..., k - 1]
+        late = bool(((kth < n) & (kth >= n // 2)).any())
+        if sparse and not (late and bool((want[found] >= n - 1024).any())):
+            raise SystemExit(f"nms_first_k check at {shape}: no peak in the "
+                             f"last chunk or no plane's K-th peak late")
+        for bd in (0.0, -float("inf")):
+            got = NF.nms_first_k(x, thre, k, bd)
+            torch.cuda.synchronize()
+            ref = NF.nms_first_k_plain(x, thre, k, bd)
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise SystemExit(f"nms_first_k differs from its plain version "
+                                 f"at {shape}, border {bd}: {bad} indices")
+        # the kernel stops at a plane's K-th peak, once the row below it is
+        # read: count the pixels this data needs
+        last = want[..., -1].long()
+        px = int(torch.where(last < n, torch.clamp_max(last + w + 1, n),
+                             n).sum())
+        bound_ms, by = bound(px * 4 + want.numel() * 4, px * 5)
+        row = {"shape": list(shape), "k": k, "border": border,
+               "sparse": sparse, "bit_equal": True, "max_abs_err": 0,
+               "peaks": int(found.sum()), "planes_read_whole": int(
+                   (kth == n).sum()),
+               "ms": cuda_ms(lambda: NF.nms_first_k(x, thre, k, border)),
+               "plain_ms": cuda_ms(
+                   lambda: NF.nms_first_k_plain(x, thre, k, border)),
+               "bound_ms": bound_ms, "bound_by": by}
+        log(f"  nms_first_k {shape} K={k} border {border}"
+            f"{' sparse' if sparse else ''}: bit-equal, {row['peaks']} peaks,"
+            f" {row['planes_read_whole']}/{bsz * c} planes read whole, "
+            f"kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        rows.append(row)
+    return rows
+
+
+def check_paf_sample(h=720, w=1280, k=32) -> list:
+    """paf_sample at the parity Body's shape: a seeded PAF [720,1280,52]
+    and peaks from find_peaks on a seeded heatmap; ok bit-equal, score
+    bit-equal to the plain version, which rounds at the same points."""
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
+    from islx_torch.ops.peaks import find_peaks
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    paf = (torch.rand((h, w, 52), device="cuda", generator=gen) - 0.4)
+    heat = smooth_field((1, 25, h, w), gen, 0.6)[0].permute(1, 2, 0)
+    pk = find_peaks(heat.contiguous(), 0.6, k)
+    args = (paf, pk.xy, pk.valid, LIMB_SEQ_BODY25, MAP_IDX_BODY25, 0.05, 10,
+            float(h))
+    score, ok = PS.paf_sample(*args)
+    torch.cuda.synchronize()
+    pscore, pok = PS.paf_sample_plain(*args)
+    err = float((score - pscore).abs().max())
+    if not torch.equal(ok, pok) or err > 0.0:
+        raise SystemExit(f"paf_sample differs from its plain version: ok "
+                         f"equal {torch.equal(ok, pok)}, score err {err}")
+    ls = LIMB_SEQ_BODY25
+    pairs = int((pk.count[torch.as_tensor(ls[:, 0])]
+                 * pk.count[torch.as_tensor(ls[:, 1])]).sum())
+    if pairs == 0 or not bool(ok.any()):
+        raise SystemExit("paf_sample check: no valid pair or no ok pair")
+    # the plain version on the card == the same code on the CPU, step by
+    # step (each rounds correctly); else name the first step apart
+    card = PS.paf_sample_terms(*args)
+    host = PS.paf_sample_terms(paf.cpu(), pk.xy.cpu(), pk.valid.cpu(),
+                               *args[3:])
+    apart = {name: int((card[name].cpu() != v).sum())
+             for name, v in host.items()}
+    first = next((name for name, n in apart.items() if n), None)
+    if first is not None:
+        raise SystemExit(f"plain paf_sample: the card and the CPU differ "
+                         f"first at {first}; words apart {apart}")
+    log("  plain paf_sample on the card == on the CPU, every step bit-equal")
+    l, mid = ls.shape[0], 10
+    # each sample reads one 32 B sector (two channels of one pixel); the
+    # outputs are 5 B a pair; ~12 f32 operations a sample
+    bound_ms, by = bound(l * k * k * (mid * 32 + 5), l * k * k * mid * 12)
+    row = {"shape": [h, w, 52], "limbs": l, "k": k, "mid": mid,
+           "bit_equal": True, "max_abs_err": err,
+           "valid_pairs": pairs, "ok_pairs": int(ok.sum()),
+           "ms": cuda_ms(lambda: PS.paf_sample(*args)),
+           "plain_ms": cuda_ms(lambda: PS.paf_sample_plain(*args)),
+           "bound_ms": bound_ms, "bound_by": by}
+    log(f"  paf_sample [{h},{w},52] L={l} K={k}: bit-equal, {pairs} valid "
+        f"pairs, {row['ok_pairs']} ok, kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    return [row]
+
+
+def spiral(h, w):
+    """A one-pixel-wide square spiral: one component, a long thin path."""
+    m = np.zeros((h, w), bool)
+    y0, x0, y1, x1 = 0, 0, h - 1, w - 1
+    while y0 <= y1 and x0 <= x1:
+        m[y0, x0:x1 + 1] = True
+        m[y0:y1 + 1, x1] = True
+        m[y1, x0:x1 + 1] = True
+        m[y0 + 2:y1 + 1, x0] = True
+        y0, x0, y1, x1 = y0 + 2, x0 + 2, y1 - 2, x1 - 2
+    return m
+
+
+def snake(h, w):
+    """One-pixel-wide rows joined alternately at the right and left ends."""
+    m = np.zeros((h, w), bool)
+    for y in range(0, h, 2):
+        m[y, :] = True
+        if y + 1 < h:
+            m[y + 1, w - 1 if (y // 2) % 2 == 0 else 0] = True
+    return m
+
+
+def blob_maps(size: int, c: int = 21) -> torch.Tensor:
+    """[size,size,c] bool on the card: a spiral, a snake and seeded smooth
+    blobs thresholded as a hand heatmap is."""
+    gen = torch.Generator(device="cuda").manual_seed(size)
+    lo = torch.rand((1, c - 2, size // 16, size // 16), device="cuda",
+                    generator=gen)
+    blobs = torch.nn.functional.interpolate(
+        lo, size=(size, size), mode="bilinear", align_corners=False)[0] > 0.7
+    thin = torch.from_numpy(np.stack([spiral(size, size), snake(size, size)])
+                            ).cuda()
+    return torch.cat([thin, blobs]).permute(1, 2, 0).contiguous()
+
+
+def check_cc_label(sizes) -> list:
+    from islx_torch.ops import cc_label as CC
+
+    rows = []
+    for size in sizes:
+        m = blob_maps(size)
+        got = CC.label_components(m)
+        torch.cuda.synchronize()
+        want = CC.label_components_plain(m)
+        if not torch.equal(got, want):
+            raise SystemExit(f"cc_label differs from its plain version at "
+                             f"{size}: {int((got != want).sum())} labels")
+        h, w, c = m.shape
+        bound_ms, by = bound(m.numel() * 5, m.numel() * 4)
+        row = {"shape": [h, w, c], "bit_equal": True, "max_abs_err": 0,
+               "foreground": int(m.sum()),
+               "components": int((want == torch.arange(
+                   h * w, device="cuda", dtype=torch.int32).reshape(
+                       h, w, 1)).sum()),
+               "ms": cuda_ms(lambda: CC.label_components(m)),
+               "plain_ms": cuda_ms(lambda: CC.label_components_plain(m),
+                                   reps=5, warmup=1),
+               "bound_ms": bound_ms, "bound_by": by}
+        log(f"  cc_label {[h, w, c]}: bit-equal, {row['components']} "
+            f"components, kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        rows.append(row)
+    return rows
+
+
 def seeded_i420(rng, b: int, hb: int, wb: int) -> np.ndarray:
     """Seeded I420 frames [b*hb*wb*3/2] u8: smooth luma + noise, chroma."""
     yy, xx = np.mgrid[0:hb, 0:wb]
@@ -150,7 +371,7 @@ def calibrate_thre1(pipe, flat, b, hb, wb, orig_hw) -> float:
     return thre1
 
 
-def fused_setup(hand_cfg, b, orig_hw, device):
+def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False):
     """The full-width bf16 fused pipeline on seeded weights, a seeded I420
     batch at the bucket of ``orig_hw`` and its calibrated thre1, warmed
     up -> (pipe, host frames, hb, wb, thre1)."""
@@ -160,7 +381,8 @@ def fused_setup(hand_cfg, b, orig_hw, device):
     hb, wb = bucket_for(*orig_hw)
     pipe = FusedPosePipeline(W.init_params("body25", 0),
                              W.init_params("hand", 1), hand_cfg=hand_cfg,
-                             compute_dtype=torch.bfloat16, device=device)
+                             compute_dtype=torch.bfloat16, device=device,
+                             pallas_nms=pallas_nms)
     host = seeded_i420(np.random.RandomState(0), b, hb, wb)
     flat = pipe.upload_frames(host)
     thre1 = calibrate_thre1(pipe, flat, b, hb, wb, orig_hw)
@@ -171,24 +393,34 @@ def fused_setup(hand_cfg, b, orig_hw, device):
 
 
 def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
-               device="cuda") -> dict:
+               device="cuda", pallas_nms=False) -> dict:
+    """Time the fused step; ``pallas_nms`` takes the NMS+first-K kernel in
+    place of the NMS mask kernel. The step's kernel must launch once a
+    step and the other not at all."""
+    from islx_torch.ops import nms_first_k as NF
     from islx_torch.ops import nms_mask as N
 
-    pipe, host, hb, wb, thre1 = fused_setup(hand_cfg, b, orig_hw, device)
+    pipe, host, hb, wb, thre1 = fused_setup(hand_cfg, b, orig_hw, device,
+                                            pallas_nms)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     N.nms_mask_rows.launches = 0
+    NF.nms_first_k.launches = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         packed = pipe.device_step_flat(pipe.upload_frames(host), b, hb, wb,
                                        orig_hw, thre1,
                                        input_format="yuv420").cpu().numpy()
     dt = (time.perf_counter() - t0) / steps
-    launches = N.nms_mask_rows.launches
-    if launches != (steps if device == "cuda" else 0):
-        raise SystemExit(f"nms_mask_rows launched {launches} times in "
-                         f"{steps} fused steps (want one per step)")
+    counts = (N.nms_mask_rows.launches, NF.nms_first_k.launches)
+    launches = counts[1] if pallas_nms else counts[0]
+    want = steps if device == "cuda" else 0
+    if counts != ((0, want) if pallas_nms else (want, 0)):
+        raise SystemExit(f"nms_mask_rows / nms_first_k launched {counts} "
+                         f"times in {steps} fused steps (pallas_nms="
+                         f"{pallas_nms}: want one of the step's kernel a "
+                         f"step)")
     body, boxes, peaks = pipe.unpack(packed, b)
     xy, score, count, pair, cscore, cok = pipe.body.unpack(body, b)
     k = pipe.body.cfg.max_peaks
@@ -202,13 +434,26 @@ def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
            "bucket": [hb, wb], "thre1": thre1, "ms_per_step": dt * 1e3,
            "frames_per_s": b / dt, "peaks": int(count.sum()),
            "hand_boxes": int((boxes[:, 3] > 0).sum()),
-           "nms_launches": launches, "steps": steps,
+           "pallas_nms": pallas_nms, "nms_launches": launches,
+           "steps": steps,
            "max_mem_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
                           if device == "cuda" else None)}
-    log(f"  fused step {res['hand']}: {res['ms_per_step']:.1f} ms/step, "
+    kind = "nms_first_k" if pallas_nms else "nms_mask"
+    log(f"  fused step {res['hand']}{' select' if pallas_nms else ''}: "
+        f"{res['ms_per_step']:.1f} ms/step, "
         f"{res['frames_per_s']:.1f} frames/s at B={b}, {res['peaks']} peaks,"
-        f" {res['hand_boxes']} hand boxes, nms launches {launches}/{steps}")
-    return res
+        f" {res['hand_boxes']} hand boxes, {kind} launches "
+        f"{launches}/{steps}")
+    return res, pipe, packed
+
+
+def integer_planes(pipe, packed, b) -> dict:
+    """The packed buffer's integer planes: peak coordinates and counts,
+    pair indices and ok bits, hand boxes and hand peaks."""
+    body, boxes, peaks = pipe.unpack(packed, b)
+    xy, _, count, pair, _, cok = pipe.body.unpack(body, b)
+    return {"xy": xy, "count": count, "pair": pair, "ok": cok,
+            "boxes": boxes, "hand_peaks": peaks}
 
 
 STAGES = ("yuv420_to_bgr", "body_cpm", "body_peaks", "paf_limbs",
@@ -336,6 +581,174 @@ def small_reference_check() -> None:
         f"{int((want == got).sum())}/{want.size}")
 
 
+def parity_weights():
+    """Seeded full-width BODY_25 and hand states; the arm joints' stage-1
+    heat bias is raised by 1 so arms chain and hand boxes fire."""
+    from islx_torch.core import weights as W
+
+    bp, hp = W.init_params("body25", 0), W.init_params("hand", 1)
+    bb = bp["Mconv7_stage1_L1"]["b"].clone()
+    bb[2:8] += 1.0
+    bp["Mconv7_stage1_L1"]["b"] = bb
+    return bp, hp
+
+
+def seeded_frame(rng, h, w) -> np.ndarray:
+    """A seeded BGR u8 frame: smooth colour fields plus noise."""
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    chans = [128 + 90 * np.sin(rng.uniform(5, 20) * yy + rng.uniform(0, 6))
+             * np.cos(rng.uniform(5, 20) * xx) for _ in range(3)]
+    img = np.stack(chans, -1) + rng.randn(h, w, 3) * 12
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def calibrate_body(body, frame, k) -> float:
+    """Raise thre1 from 0.1 in steps of x1.25 until the mean peak count per
+    joint of the frame's averaged heatmaps is <= 4 (phase 4's rule; finer
+    steps, since full-resolution maps of random nets hold many peaks)."""
+    from islx_torch.ops.peaks import find_peaks
+
+    with torch.inference_mode():
+        heat, _ = body._maps(frame)
+    thre1 = 0.1
+    for _ in range(24):
+        pk = find_peaks(heat[:, :, :body.cfg.njoint - 1].contiguous(), thre1,
+                        k)
+        if float(pk.count.float().mean()) <= 4.0:
+            break
+        thre1 *= 1.25
+    body.cfg = dataclasses.replace(body.cfg, thre1=thre1)
+    return thre1
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of ``fn`` (each call ends in a copy to the host)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def parity_path() -> dict:
+    """The reference-parity path at full width in f32: ISLSignPos(Body,
+    Hand()) on a seeded 720x1280 frame and Hand on two 256x256 crops; the
+    three kernels of the path must each launch, kernel 3 must see a valid
+    pair and kernel 4 foreground."""
+    from islx_torch.core.config import HandConfig, PoseConfig
+    from islx_torch.isl.translator import ISLSignPos
+    from islx_torch.ops import cc_label as CC
+    from islx_torch.ops import nms_first_k as NF
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.pose.body import Body
+    from islx_torch.pose.hand import Hand
+
+    bp, hp = parity_weights()
+    body = Body(bp, config=PoseConfig(), compute_dtype=torch.float32)
+    hand = Hand(hp, config=HandConfig(), compute_dtype=torch.float32)
+    pos = ISLSignPos(body, hand)
+    rng = np.random.RandomState(7)
+    frame = seeded_frame(rng, 720, 1280)
+    crops = [seeded_frame(rng, 256, 256) for _ in range(2)]
+    thre1 = calibrate_body(body, frame, body.cfg.max_peaks)
+    pos(frame)                                            # warm-up
+    torch.cuda.synchronize()
+    kernels = (NF.nms_first_k, PS.paf_sample, CC.label_components)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    cand, subset, hands = pos(frame)
+    crop_peaks = [hand(c) for c in crops]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if min(launches.values()) < 1:
+        raise SystemExit(f"parity path: a kernel was not launched: "
+                         f"{launches}")
+    pk, ls = body.peaks_and_limbs(frame)
+    seq = body.limb_seq
+    pairs = int((pk.count[torch.as_tensor(seq[:, 0])]
+                 * pk.count[torch.as_tensor(seq[:, 1])]).sum())
+    found = sum(int((p != 0).any(-1).sum()) for p in crop_peaks + hands)
+    if pairs == 0:
+        raise SystemExit("parity path: the PAF kernel saw no valid pair")
+    if found == 0:
+        raise SystemExit("parity path: the labelling kernel saw no "
+                         "foreground")
+    if not (np.isfinite(cand).all() and np.isfinite(subset).all()
+            and all(((p >= 0).all() and p.shape == (21, 2))
+                    for p in crop_peaks + hands)):
+        raise SystemExit("parity path: output out of range")
+    res = {"frame": [720, 1280], "thre1": thre1,
+           "candidates": int(len(cand)), "people": int(len(subset)),
+           "hand_boxes": len(hands), "valid_pairs": pairs,
+           "ok_pairs": int(ls.ok.sum()), "hand_parts_found": found,
+           "launches": launches, "wall_s": wall,
+           "body_ms": host_ms(lambda: body(frame)),
+           "hand_ms_256": host_ms(lambda: hand(crops[0]))}
+    log(f"  parity path: {res['candidates']} candidates, {res['people']} "
+        f"people, {len(hands)} hand boxes, {pairs} valid pairs, "
+        f"{found} hand parts found; Body {res['body_ms']:.1f} ms/call, "
+        f"Hand {res['hand_ms_256']:.1f} ms/call (256 px crop, 4 scales); "
+        f"launches {launches}")
+    return res
+
+
+def parity_small_check() -> None:
+    """The parity path on the card == the plain CPU path, f32, on a 92x120
+    frame and a 64 px crop: coordinates, part ids and subset indices
+    equal, scores within 1e-4."""
+    from islx_torch.core.config import HandConfig, PoseConfig
+    from islx_torch.isl.translator import ISLSignPos
+    from islx_torch.pose.body import Body
+    from islx_torch.pose.hand import Hand
+
+    bp, hp = parity_weights()
+    pose = PoseConfig(scale_search=(0.25,), max_peaks=8, thre2=-0.5)
+    hcfg = HandConfig(scale_search=(0.25,))
+    rng = np.random.RandomState(8)
+    frame = seeded_frame(rng, 92, 120)
+    crop = seeded_frame(rng, 64, 64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        body = Body(bp, config=pose, device=dev)
+        hand = Hand(hp, config=hcfg, device=dev)
+        if dev == "cpu":
+            heat, _ = body.maps(frame)
+            # the 60th percentile of the joint maps: people and hand
+            # boxes form on this frame, so grouping and crops are checked
+            thre1 = float(np.quantile(heat[..., :25], 0.6))
+        body.cfg = dataclasses.replace(body.cfg, thre1=thre1)
+        out[dev] = ISLSignPos(body, hand)(frame) + (hand(crop),)
+    (cw, sw, hw, pw), (cg, sg, hg, pg) = out["cpu"], out["cuda"]
+    same = (cw.shape == cg.shape and sw.shape == sg.shape
+            and np.array_equal(cw[:, [0, 1, 3]], cg[:, [0, 1, 3]])
+            and np.array_equal(sw[:, :-2], sg[:, :-2])
+            and np.array_equal(sw[:, -1], sg[:, -1])
+            and len(hw) == len(hg)
+            and all(np.array_equal(a, b) for a, b in zip(hw, hg))
+            and np.array_equal(pw, pg))
+    if not same:
+        raise SystemExit(f"parity small check: integer outputs differ "
+                         f"between the card and the CPU path:\n{cw}\n{cg}\n"
+                         f"{sw}\n{sg}\n{hw}\n{hg}\n{pw}\n{pg}")
+    err = max([float(np.abs(cw[:, 2] - cg[:, 2]).max(initial=0.0)),
+               float(np.abs(sw[:, -2] - sg[:, -2]).max(initial=0.0))])
+    if err > 1e-4:
+        raise SystemExit(f"parity small check: scores differ by {err}")
+    if len(sw) == 0 or len(hw) == 0 or not (pw != 0).any():
+        raise SystemExit("parity small check: no people, hand boxes or "
+                         "hand parts")
+    log(f"  small f32 parity path on the card vs CPU plain path: "
+        f"{len(cw)} candidates, {len(sw)} people, {len(hw)} hand boxes, "
+        f"{int((pw != 0).any(-1).sum())} crop parts equal; score max abs "
+        f"diff {err:.2e}")
+
+
 def translation(hand_cfg, n_frames=48, batch=16, orig_hw=(720, 1280),
                 device="cuda"):
     from islx_torch.ops import nms_mask as N
@@ -381,7 +794,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive islx_torch on one GPU.")
     ap.add_argument("--profile", action="store_true",
-                    help="instead of phases 3-5, profile the fused step "
+                    help="instead of phases 3-6, profile the fused step "
                          "(device ms per stage, top kernels, busy share)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -398,8 +811,11 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build("nms_mask")
-    log(f"[2] build: nms_mask.cu in {time.perf_counter() - t0:.1f} s")
+    names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))       # one nvcc a source
+    log(f"[2] build: {', '.join(n + '.cu' for n in names)} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     hand_cfg, note = HandConfig.gated()
     hand_160 = dataclasses.replace(HandConfig.production(160.0 / 368.0),
@@ -417,27 +833,75 @@ def main(argv=None) -> int:
     log("[3] kernels against their plain versions")
     nms_rows = check_nms_kernel([(192, 25, 184, 144), (16, 25, 184, 328),
                                  (3, 25, 37, 130)])
+    # at the parity Body's shape a threshold near 1 leaves a few peaks a
+    # plane, as the calibrated path does, so the kernel reads whole planes
+    # sparse: the parity Body's shape and the select step's, with a few
+    # peaks a plane as the calibrated paths give (whole planes read);
+    # dense: K peaks early in every plane (the early exit)
+    nfk_rows = check_nms_first_k([((1, 25, 720, 1280), 0.6, -float("inf"),
+                                   True),
+                                  ((192, 25, 184, 144), 0.5, 0.0, True),
+                                  ((192, 25, 184, 144), 0.5, 0.0, False),
+                                  ((16, 25, 184, 328), 0.5, 0.0, False),
+                                  ((3, 25, 37, 130), 0.5, 0.0, True),
+                                  ((3, 25, 37, 130), 0.5, 0.0, False)])
+    paf_rows = check_paf_sample()
+    cc_rows = check_cc_label([368, 736, 256])
+    torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
 
     log("[4] fused pose step, full width, bf16")
     log(f"    hand config: {note}")
-    steps = [fused_step(hand_cfg), fused_step(hand_160)]
+    step184, _, packed_mask = fused_step(hand_cfg)
+    step160 = fused_step(hand_160)[0]
     small_reference_check()
+
+    log("[4b] fused select path (pallas_nms=True), fused-184s6")
+    step_sel, pipe, packed_sel = fused_step(hand_cfg, pallas_nms=True)
+    if step_sel["thre1"] != step184["thre1"]:
+        raise SystemExit(f"select path calibrated thre1 "
+                         f"{step_sel['thre1']}, the mask path "
+                         f"{step184['thre1']}")
+    want = integer_planes(pipe, packed_mask, 192)
+    got = integer_planes(pipe, packed_sel, 192)
+    diff = [k for k in want if not np.array_equal(want[k], got[k])]
+    if diff:
+        raise SystemExit(f"select path: integer planes {diff} differ from "
+                         f"the mask path's")
+    step_sel["words_equal"] = int((packed_mask == packed_sel).sum())
+    step_sel["words"] = int(packed_mask.size)
+    log(f"  select path: integer planes word-equal to the mask path's; "
+        f"{step_sel['words_equal']}/{step_sel['words']} words equal")
 
     log("[5] translation")
     trans = translation(hand_cfg)
 
-    bench = nms_rows[0]
-    kernels = {"kernels": [{
-        "name": "nms_mask_rows", "route": "cuda",
-        "source": "islx_torch/csrc/nms_mask.cu",
-        "replaces": "islx/ops/pallas_peaks.py:64",
-        "launches": steps[0]["nms_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
-        "bit_equal": all(r["bit_equal"] for r in nms_rows),
-        "ms": bench["ms"], "plain_ms": bench["plain_ms"],
-        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
-        "library_ms": None, "shapes": nms_rows}],
-        "fused_step": steps, "translation": trans,
+    log("[6] reference-parity path, full width, f32")
+    parity = parity_path()
+    parity_small_check()
+
+    def entry(name, source, replaces, launches, rows, main=0):
+        bench = rows[main]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "bit_equal": all(r["bit_equal"] for r in rows),
+                "ms": bench["ms"], "plain_ms": bench["plain_ms"],
+                "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+                "library_ms": None, "shapes": rows}
+
+    pl = parity["launches"]
+    kernels = {"kernels": [
+        entry("nms_mask_rows", "islx_torch/csrc/nms_mask.cu",
+              "islx/ops/pallas_peaks.py:64", step184["nms_launches"],
+              nms_rows),
+        entry("nms_first_k", "islx_torch/csrc/nms_first_k.cu",
+              "islx/ops/pallas_peaks.py:29", pl["nms_first_k"], nfk_rows),
+        entry("paf_sample", "islx_torch/csrc/paf_sample.cu",
+              "islx/ops/pallas_paf.py:30", pl["paf_sample"], paf_rows),
+        entry("cc_label", "islx_torch/csrc/cc_label.cu",
+              "islx/ops/pallas_cc.py:29", pl["label_components"], cc_rows)],
+        "fused_step": [step184, step160], "select_step": step_sel,
+        "translation": trans, "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
     log(json.dumps(kernels))
     log(card)

@@ -48,6 +48,18 @@ def rdiv(d: float, x: torch.Tensor) -> torch.Tensor:
     return torch.full((), d, dtype=x.dtype, device=x.device) / x
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` correctly rounded to x's float type on every device.
+
+    PyTorch's f32 ``sqrt`` on the CPU (its vectorised path) is one ulp off
+    for some inputs, e.g. sqrt(267), where XLA and the CUDA kernels round
+    correctly. The square root of the f64 widening, rounded to f32, is the
+    correctly rounded f32 result as long as the f64 root is within one f64
+    ulp: an f32 root is never nearer than 2**-50 (relative) to a halfway
+    point between two f32 numbers, four f64 ulps."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 @contextlib.contextmanager
 def true_f32():
     """Float32 convolutions and matmuls in full f32 inside the block.

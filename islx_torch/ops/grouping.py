@@ -1,5 +1,6 @@
 """Greedy limb assignment + person grouping (host step; numpy copy of
-islx/ops/grouping.py for the compact-connection path).
+islx/ops/grouping.py: the compact-connection path of the fused step and the
+all-pairs path of the parity ``Body``).
 
 This is the one intentionally-host stage of the body pipeline: the greedy
 mutual-exclusion pick over sorted limb candidates and the person-subset merge
@@ -47,6 +48,47 @@ def build_candidates(xy: np.ndarray, score: np.ndarray, count: np.ndarray
         next_id += n
     candidate = np.concatenate(blocks, 0) if blocks else np.zeros((0, 4))
     return candidate, ids
+
+
+def select_connections(limb_score: np.ndarray, limb_ok: np.ndarray,
+                       counts: np.ndarray, ids: List[np.ndarray],
+                       limb_seq: np.ndarray
+                       ) -> Tuple[List[np.ndarray], List[int]]:
+    """Greedy per-limb assignment (reference semantics: src/body.py:140-178).
+
+    limb_score/limb_ok: [L,K,K] from islx_torch.ops.paf.score_limbs.
+    Returns (connection_all, special_k): per limb either an [M,5] array of
+    (globalA, globalB, score, i, j) or [] when a side has no candidates.
+    """
+    connection_all: List[np.ndarray] = []
+    special_k: List[int] = []
+    for k in range(limb_seq.shape[0]):
+        a_part, b_part = int(limb_seq[k, 0]), int(limb_seq[k, 1])
+        n_a, n_b = int(counts[a_part]), int(counts[b_part])
+        if n_a == 0 or n_b == 0:
+            special_k.append(k)
+            connection_all.append([])
+            continue
+        ii, jj = np.nonzero(limb_ok[k, :n_a, :n_b])
+        ss = limb_score[k, ii, jj].astype(np.float64)
+        # stable sort, score desc, ties keep (i, j) enumeration order
+        # (src/body.py:142-166)
+        order = np.lexsort((jj, ii, -ss))
+        used_i = np.zeros(n_a, bool)
+        used_j = np.zeros(n_b, bool)
+        rows = []
+        cap = min(n_a, n_b)
+        for t in order:
+            i, j = int(ii[t]), int(jj[t])
+            if not used_i[i] and not used_j[j]:
+                used_i[i] = used_j[j] = True
+                rows.append([ids[a_part][i], ids[b_part][j], ss[t],
+                             float(i), float(j)])
+                if len(rows) >= cap:
+                    break
+        connection_all.append(np.array(rows, dtype=np.float64)
+                              if rows else np.zeros((0, 5)))
+    return connection_all, special_k
 
 
 def select_connections_sorted(pair: np.ndarray, score: np.ndarray,
@@ -245,5 +287,17 @@ def assemble_sorted(peaks_xy: np.ndarray, peaks_score: np.ndarray,
     candidate, ids = build_candidates(peaks_xy, peaks_score, peaks_count)
     connection_all, special_k = select_connections_sorted(
         pair, score, ok, k, peaks_count, ids, limb_seq)
+    subset = group_people(candidate, connection_all, special_k, limb_seq, njoint)
+    return candidate, subset
+
+
+def assemble(peaks_xy: np.ndarray, peaks_score: np.ndarray,
+             peaks_count: np.ndarray, limb_score: np.ndarray,
+             limb_ok: np.ndarray, limb_seq: np.ndarray, njoint: int
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Peak + all-pairs limb tables -> (candidate, subset)."""
+    candidate, ids = build_candidates(peaks_xy, peaks_score, peaks_count)
+    connection_all, special_k = select_connections(
+        limb_score, limb_ok, peaks_count, ids, limb_seq)
     subset = group_people(candidate, connection_all, special_k, limb_seq, njoint)
     return candidate, subset

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from islx_torch.core.config import DetectorConfig
-from islx_torch.core.runtime import div
+from islx_torch.core.runtime import div, sqrt_rn
 
 
 def arm_limb_rows(limb_seq: np.ndarray) -> Tuple[Tuple[int, int],
@@ -70,9 +70,9 @@ def device_hand_boxes(pk_xy: torch.Tensor, cc_pair: torch.Tensor,
         p_w = pk_xy[bidx, w_chan, wj].float() * scale
         c = p_w + cfg.ratio_wrist_elbow * (p_w - p_e)
         d = p_w - p_e
-        d_we = torch.sqrt((d * d).sum(-1))
+        d_we = sqrt_rn((d * d).sum(-1))
         d = p_e - p_s
-        d_es = torch.sqrt((d * d).sum(-1))
+        d_es = sqrt_rn((d * d).sum(-1))
         width = cfg.width_scale * torch.maximum(d_we,
                                                 cfg.shoulder_ratio * d_es)
         x = torch.clamp_min(c[:, 0] - width / 2.0, 0.0)

@@ -26,19 +26,27 @@ def _thre_f32(thre1) -> float:
     return float(np.float32(thre1))
 
 
+def nms_mask(blurred: torch.Tensor, thre1, border: float = 0.0
+             ) -> torch.Tensor:
+    """blurred [..., H, W] f32 -> bool mask: >= each of the 4 neighbours
+    (``border`` outside the image) and > thre1; comparisons with NaN are
+    false."""
+    b = blurred
+    thre = _thre_f32(thre1)
+    up = F.pad(b[..., :-1, :], (0, 0, 1, 0), value=border)
+    down = F.pad(b[..., 1:, :], (0, 0, 0, 1), value=border)
+    left = F.pad(b[..., :, :-1], (1, 0), value=border)
+    right = F.pad(b[..., :, 1:], (0, 1), value=border)
+    return (b >= up) & (b >= down) & (b >= left) & (b >= right) & (b > thre)
+
+
 def nms_mask_rows_plain(blurred: torch.Tensor, thre1
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """blurred [B,C,H,W] f32 -> (mask u8 [B,C,H,W], row_cnt s32 [B,C,H]).
 
     A pixel is 1 where it is >= its four neighbours (0.0 outside the image)
     and > thre1; comparisons with NaN are false."""
-    b = blurred
-    thre = _thre_f32(thre1)
-    up = F.pad(b[..., :-1, :], (0, 0, 1, 0))
-    down = F.pad(b[..., 1:, :], (0, 0, 0, 1))
-    left = F.pad(b[..., :, :-1], (1, 0))
-    right = F.pad(b[..., :, 1:], (0, 1))
-    mask = (b >= up) & (b >= down) & (b >= left) & (b >= right) & (b > thre)
+    mask = nms_mask(blurred, thre1)
     return mask.to(torch.uint8), mask.sum(-1, dtype=torch.int32)
 
 

@@ -1,5 +1,9 @@
-"""PAF limb scoring on the /8 grid + on-device compaction (port of
-``islx/ops/paf.py``: ``score_limbs_cell`` with int8-counted cells and
+"""PAF limb scoring (port of ``islx/ops/paf.py``).
+
+:func:`score_limbs` is the parity path's exact scoring at full resolution:
+the CUDA kernel of :mod:`islx_torch.ops.paf_sample` on the card, its plain
+version on the CPU. The rest is the fused step's scoring on the /8 grid +
+on-device compaction (``score_limbs_cell`` with int8-counted cells and
 ``compact_connections``), batched over frames.
 
 Every K x K candidate pair of a limb samples ``mid_num`` points on its line;
@@ -16,7 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from islx_torch.core.runtime import div, rdiv
+from islx_torch.core.runtime import div, rdiv, sqrt_rn
+from islx_torch.ops.paf_sample import paf_sample
 
 # Limb connection tables (reference: src/body.py:109-126).
 LIMB_SEQ_BODY25 = np.array(
@@ -46,7 +51,8 @@ LIMB_TABLES = {
 
 
 class LimbScores(NamedTuple):
-    """score [B,L,K,K] f32 (score with distance prior); ok [B,L,K,K] bool."""
+    """score [...,L,K,K] f32 (score with distance prior); ok [...,L,K,K]
+    bool."""
 
     score: torch.Tensor
     ok: torch.Tensor
@@ -62,6 +68,19 @@ class CompactConnections(NamedTuple):
     ok: torch.Tensor
 
 
+def score_limbs(paf: torch.Tensor, peaks_xy: torch.Tensor,
+                peaks_valid: torch.Tensor, limb_seq: np.ndarray,
+                map_idx: np.ndarray, thre2: float = 0.05, mid_num: int = 10,
+                orig_h: float = None) -> LimbScores:
+    """paf [H,W,P] full-resolution PAF maps, peaks_xy [C,K,2] int32,
+    peaks_valid [C,K] -> every limb's K x K pair scores [L,K,K]
+    (islx/ops/paf.py:91); ``orig_h`` is the height in the distance prior."""
+    score, ok = paf_sample(paf.contiguous(), peaks_xy.to(torch.int32)
+                           .contiguous(), peaks_valid.contiguous(), limb_seq,
+                           map_idx, thre2, mid_num, orig_h)
+    return LimbScores(score=score, ok=ok)
+
+
 def _pair_samples8(peaks_xy: torch.Tensor, peaks_valid: torch.Tensor,
                    limb: tuple, stride: int, h8: int, w8: int, mid_num: int):
     """One limb's K x K pair geometry over a batch: -> (unit [B,K,K,2],
@@ -72,7 +91,7 @@ def _pair_samples8(peaks_xy: torch.Tensor, peaks_valid: torch.Tensor,
     valid = peaks_valid[:, limb[0]][:, :, None] & peaks_valid[:, limb[1]][
         :, None, :]
     vec = b_xy[:, None, :, :] - a_xy[:, :, None, :]        # [B,K,K,2]
-    norm = torch.clamp_min(torch.sqrt((vec * vec).sum(-1)), 0.001)
+    norm = torch.clamp_min(sqrt_rn((vec * vec).sum(-1)), 0.001)
     unit = vec / norm[..., None]
     t = torch.linspace(0.0, 1.0, mid_num, device=peaks_xy.device)
     pts = (a_xy[:, :, None, None, :]

@@ -1,0 +1,199 @@
+"""Exact PAF line-integral scoring of every limb's K x K candidate pairs.
+
+``paf_sample`` is the port of the Pallas kernel
+``islx/ops/pallas_paf.py::_sample_kernel`` together with the score math of
+``islx/ops/paf.py::score_limbs`` around it. On a CUDA tensor it launches the
+hand-written kernel in ``islx_torch/csrc/paf_sample.cu``; on a CPU tensor it
+runs :func:`paf_sample_plain`, the plain PyTorch version of the same
+function, in the same operation order. There is no fallback between the
+two: a CUDA tensor the kernel cannot take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from islx_torch.core.runtime import rdiv, sqrt_rn
+from islx_torch.ops import _build
+
+
+def _limb_table(limb_seq, map_idx, device) -> torch.Tensor:
+    """[L,4] int32 rows (a part, b part, x channel, y channel)."""
+    tab = np.concatenate([np.asarray(limb_seq), np.asarray(map_idx)], 1)
+    return torch.from_numpy(tab.astype(np.int32)).to(device)
+
+
+def _samples_t(mid_num: int, device) -> torch.Tensor:
+    """The f32 sample positions along a limb, the words of
+    ``jnp.linspace(0, 1, mid_num)`` as XLA computes them: ``i * f32(1/div)``
+    and an exact 1.0 at the end (``torch.linspace`` differs in the last bit
+    for some counts, e.g. 7)."""
+    t = np.arange(mid_num, dtype=np.float32)
+    if mid_num > 1:
+        t = t * np.float32(1.0 / (mid_num - 1))
+        t[-1] = 1.0
+    return torch.from_numpy(t.astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _kernel_tables(rows: tuple, mid_num: int, device: str):
+    """The kernel's limb table [L,4] and sample positions on ``device``,
+    made once: a copy to the card per call would cost more than the
+    kernel."""
+    tab = torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 4)
+    return tab, _samples_t(mid_num, device)
+
+
+def _inv_mid(mid_num: int) -> float:
+    """The mean's factor: XLA rewrites the JAX code's ``sum / mid`` into a
+    multiply by the f32 reciprocal."""
+    return float(np.float32(1.0 / mid_num))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a*b + c`` with one rounding: the f32 product is exact in f64
+    and the sum rounds twice (f64, then f32) only where the f64 sum is
+    inexact and lands on an f32 halfway point."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def paf_sample_plain(paf: torch.Tensor, peaks_xy: torch.Tensor,
+                     peaks_valid: torch.Tensor, limb_seq, map_idx,
+                     thre2: float = 0.05, mid_num: int = 10,
+                     orig_h: float = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """paf [H,W,P] f32, peaks_xy [C,K,2] int, peaks_valid [C,K] bool ->
+    (score [L,K,K] f32, ok [L,K,K] bool); islx/ops/paf.py:61-117.
+
+    The arithmetic is the JAX code's as XLA compiles it for the CPU: the
+    sample points, each sample's dot with the unit vector, the mean's sum
+    of products and the mean plus prior are fused multiply-adds, and the
+    mean's sum runs over the 2*mid products in (sample, x/y) order."""
+    terms = paf_sample_terms(paf, peaks_xy, peaks_valid, limb_seq, map_idx,
+                             thre2, mid_num, orig_h)
+    return terms["score"], terms["ok"]
+
+
+def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
+                     peaks_valid: torch.Tensor, limb_seq, map_idx,
+                     thre2: float = 0.05, mid_num: int = 10,
+                     orig_h: float = None) -> dict:
+    """:func:`paf_sample_plain`'s intermediate tensors by name, in the order
+    they are computed, ending in ``score`` and ``ok``: run on two devices,
+    they show the first step that rounds apart."""
+    h, w = paf.shape[0], paf.shape[1]
+    if orig_h is None:
+        orig_h = h
+    tab = _limb_table(limb_seq, map_idx, paf.device).long()
+    a = peaks_xy[tab[:, 0]].float()                       # [L,K,2]
+    b = peaks_xy[tab[:, 1]].float()
+    vec = b[:, None, :, :] - a[:, :, None, :]             # [L,K,K,2]
+    vx, vy = vec[..., 0], vec[..., 1]
+    norm = torch.clamp_min(sqrt_rn(vx * vx + vy * vy), 0.001)
+    ux, uy = vx / norm, vy / norm
+    t = _samples_t(mid_num, paf.device)
+    px = _fma(vx[..., None], t, a[:, :, None, None, 0])   # [L,K,K,mid]
+    py = _fma(vy[..., None], t, a[:, :, None, None, 1])
+    xi = torch.clamp(torch.round(px).long(), 0, w - 1)
+    yi = torch.clamp(torch.round(py).long(), 0, h - 1)
+    sx = paf[yi, xi, tab[:, 2, None, None, None]]
+    sy = paf[yi, xi, tab[:, 3, None, None, None]]
+    ux_, uy_ = ux[..., None], uy[..., None]
+    score_mid = _fma(sy, uy_, sx * ux_)
+    total = torch.zeros_like(norm)
+    for m in range(mid_num):
+        total = _fma(sx[..., m], ux, total)
+        total = _fma(sy[..., m], uy, total)
+    prior = torch.clamp_max(rdiv(0.5 * float(np.float32(orig_h)), norm) - 1.0,
+                            0.0)
+    score = _fma(total, torch.full_like(total, _inv_mid(mid_num)), prior)
+    crit1 = (score_mid > float(np.float32(thre2))).sum(-1) > 0.8 * mid_num
+    valid = peaks_valid.bool()
+    ok = (crit1 & (score > 0) & valid[tab[:, 0]][:, :, None]
+          & valid[tab[:, 1]][:, None, :])
+    return {"norm": norm, "ux": ux, "uy": uy, "px": px, "py": py, "sx": sx,
+            "sy": sy, "score_mid": score_mid, "total": total,
+            "prior": prior, "score": score, "ok": ok}
+
+
+def _kernel():
+    lib = _build.load("paf_sample")
+    fn = lib.islx_paf_sample
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paf_sample(paf: torch.Tensor, peaks_xy: torch.Tensor,
+               peaks_valid: torch.Tensor, limb_seq, map_idx,
+               thre2: float = 0.05, mid_num: int = 10, orig_h: float = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """paf [H,W,P] f32, peaks_xy [C,K,2] int32, peaks_valid [C,K] bool,
+    limb_seq/map_idx [L,2] host tables -> (score [L,K,K] f32, ok [L,K,K]
+    bool).
+
+    CUDA tensors go through the sm_90a kernel on the current stream (no
+    synchronisation; ``paf_sample.launches`` counts the launches), CPU
+    tensors through :func:`paf_sample_plain`."""
+    if paf.device.type == "cpu":
+        return paf_sample_plain(paf, peaks_xy, peaks_valid, limb_seq, map_idx,
+                                thre2, mid_num, orig_h)
+    if paf.device.type != "cuda":
+        raise ValueError(f"paf_sample: unsupported device {paf.device}")
+    if paf.dtype != torch.float32 or paf.dim() != 3:
+        raise TypeError(f"paf_sample: need paf [H,W,P] float32, got "
+                        f"{paf.dtype} {tuple(paf.shape)}")
+    if peaks_xy.dtype != torch.int32 or peaks_xy.dim() != 3 \
+            or peaks_xy.shape[2] != 2:
+        raise TypeError(f"paf_sample: need peaks_xy [C,K,2] int32, got "
+                        f"{peaks_xy.dtype} {tuple(peaks_xy.shape)}")
+    if peaks_valid.dtype != torch.bool \
+            or tuple(peaks_valid.shape) != tuple(peaks_xy.shape[:2]):
+        raise TypeError("paf_sample: need peaks_valid [C,K] bool")
+    for name, x in (("paf", paf), ("peaks_xy", peaks_xy),
+                    ("peaks_valid", peaks_valid)):
+        if x.device != paf.device:
+            raise ValueError(f"paf_sample: {name} on {x.device}, paf on "
+                             f"{paf.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"paf_sample: {name} must be contiguous")
+    h, w, p = paf.shape
+    c, k = peaks_xy.shape[:2]
+    parts, chans = np.asarray(limb_seq), np.asarray(map_idx)
+    if parts.size and (parts.min() < 0 or parts.max() >= c
+                       or chans.min() < 0 or chans.max() >= p):
+        raise ValueError("paf_sample: limb table out of range")
+    if mid_num < 1 or h * w == 0:
+        raise ValueError(f"paf_sample: need mid_num >= 1 and a non-empty "
+                         f"map, got {mid_num}, {h}x{w}")
+    rows = tuple(map(tuple, np.concatenate([parts, chans], 1).tolist()))
+    tab, t = _kernel_tables(rows, mid_num, str(paf.device))
+    l = tab.shape[0]
+    if orig_h is None:
+        orig_h = h
+    score = torch.empty((l, k, k), dtype=torch.float32, device=paf.device)
+    ok = torch.empty((l, k, k), dtype=torch.uint8, device=paf.device)
+    if score.numel() == 0:
+        return score, ok.view(torch.bool)
+    with torch.cuda.device(paf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(paf.data_ptr(), peaks_xy.data_ptr(),
+                        peaks_valid.data_ptr(), tab.data_ptr(), t.data_ptr(),
+                        score.data_ptr(), ok.data_ptr(), h, w, p, l, k,
+                        mid_num, float(np.float32(thre2)),
+                        float(np.float32(0.5 * float(np.float32(orig_h)))),
+                        float(np.float32(0.8 * mid_num)),
+                        _inv_mid(mid_num), stream)
+    if err != 0:
+        raise RuntimeError(f"paf_sample: kernel launch failed "
+                           f"(cudaError {err})")
+    paf_sample.launches += 1
+    return score, ok.view(torch.bool)
+
+
+paf_sample.launches = 0

@@ -1,14 +1,18 @@
-"""Body-joint peaks on the device: blur∘upsample, NMS mask, first-K select
-(port of ``islx/ops/peaks.py::find_peaks_fused_batched`` with
-``kernel="mask"``).
+"""Body-joint peaks on the device (port of ``islx/ops/peaks.py``).
 
-The gaussian blur folds into the x8 cubic upsample (one host-built matrix
-per axis), the NMS mask + row counts come from the CUDA kernel
-(:mod:`islx_torch.ops.nms_mask`), the first K peaks per channel in
-row-major order come from the row-blocked selection, and each peak's score
-is the unblurred cubic value reconstructed at the peak. All contractions
-are f32: CUDA matmuls run in full f32 unless TF32 is allowed, which
-:func:`_assert_f32_matmul` checks.
+* :func:`find_peaks_fused_batched`, the fused step's peaks: the gaussian
+  blur folds into the x8 cubic upsample (one host-built matrix per axis);
+  ``kernel="mask"`` takes the NMS mask + row counts from the CUDA kernel of
+  :mod:`islx_torch.ops.nms_mask` and the first K peaks per channel in
+  row-major order from the row-blocked selection, ``kernel="select"`` takes
+  both from the NMS+first-K kernel of :mod:`islx_torch.ops.nms_first_k`;
+  each peak's score is the unblurred cubic value reconstructed at the peak.
+* :func:`find_peaks`, the parity path's peaks of one full-resolution map:
+  gaussian blur, then NMS+first-K (the same kernel, with the -inf border of
+  islx's ``_nms_mask``), then the unblurred value at each peak.
+
+All contractions are f32: CUDA matmuls run in full f32 unless TF32 is
+allowed, which :func:`_assert_f32_matmul` checks.
 """
 from __future__ import annotations
 
@@ -18,16 +22,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from islx_torch.ops.blur import _blur_matrix
+from islx_torch.ops.blur import _blur_matrix, gaussian_blur
+from islx_torch.ops.nms_first_k import nms_first_k
 from islx_torch.ops.nms_mask import nms_mask_rows
 from islx_torch.ops.resize import _resize_matrix
 
 
 class Peaks(NamedTuple):
-    """Fixed-K peaks per channel, batched over B.
+    """Fixed-K peaks per channel, batched over any leading dims.
 
-    xy [B,C,K,2] int32 (x, y) row-major order; score [B,C,K] f32; valid
-    [B,C,K] bool; count [B,C] int32."""
+    xy [...,C,K,2] int32 (x, y) row-major order; score [...,C,K] f32; valid
+    [...,C,K] bool; count [...,C] int32."""
 
     xy: torch.Tensor
     score: torch.Tensor
@@ -80,12 +85,14 @@ def _first_k_masked_rows(mask: torch.Tensor, k: int,
 
 
 def find_peaks_fused_batched(heat8: torch.Tensor, h_out: int, w_out: int,
-                             thre1: float, k: int = 32,
-                             sigma: float = 3.0) -> Peaks:
+                             thre1: float, k: int = 32, sigma: float = 3.0,
+                             kernel: str = "mask") -> Peaks:
     """heat8 [B,h8,w8,C] net-resolution heatmaps -> peaks at (h_out, w_out).
 
-    Positions agree with the JAX code except where f32 rounding flips a
-    near-exact NMS tie."""
+    ``kernel``: ``"mask"`` (NMS mask kernel + row-blocked selection) or
+    ``"select"`` (the NMS+first-K kernel, islx's ``ISLX_PALLAS_NMS`` path);
+    both give the same peaks. Positions agree with the JAX code except
+    where f32 rounding flips a near-exact NMS tie."""
     bsz, h8, w8, c = heat8.shape
     dev = heat8.device
     _assert_f32_matmul(dev)
@@ -96,8 +103,13 @@ def find_peaks_fused_batched(heat8: torch.Tensor, h_out: int, w_out: int,
     blurred = torch.einsum("pw,bowc->bcop", fw, t).contiguous()  # [B,C,H,W]
 
     n = h_out * w_out
-    mask, row_cnt = nms_mask_rows(blurred, thre1)
-    idx = _first_k_masked_rows(mask, k, row_cnt)                # [B,C,K]
+    if kernel == "mask":
+        mask, row_cnt = nms_mask_rows(blurred, thre1)
+        idx = _first_k_masked_rows(mask, k, row_cnt)            # [B,C,K]
+    elif kernel == "select":
+        idx = nms_first_k(blurred, thre1, k).long()             # [B,C,K]
+    else:
+        raise ValueError(f"unknown peak kernel {kernel!r}")
     valid = idx < n
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     y = idx // w_out
@@ -114,4 +126,23 @@ def find_peaks_fused_batched(heat8: torch.Tensor, h_out: int, w_out: int,
     score = torch.where(valid, score, torch.zeros_like(score))
     xy = torch.stack([x_, y], dim=-1).to(torch.int32)
     count = valid.sum(dim=2, dtype=torch.int32)
+    return Peaks(xy=xy, score=score, valid=valid, count=count)
+
+
+def find_peaks(heatmap: torch.Tensor, thre1: float, k: int = 32,
+               sigma: float = 3.0) -> Peaks:
+    """heatmap [H,W,C] averaged (unblurred) joint heatmaps -> Peaks over
+    the C channels (xy [C,K,2], ...), islx/ops/peaks.py:358."""
+    h, w, c = heatmap.shape
+    _assert_f32_matmul(heatmap.device)
+    blurred = gaussian_blur(heatmap, sigma)                     # [H,W,C]
+    idx = nms_first_k(blurred.permute(2, 0, 1)[None].contiguous(), thre1, k,
+                      border=-float("inf"))[0].long()           # [C,K]
+    valid = idx < h * w
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    flat = heatmap.float().permute(2, 0, 1).reshape(c, h * w)
+    score = torch.gather(flat, 1, idx)
+    score = torch.where(valid, score, torch.zeros_like(score))
+    xy = torch.stack([idx % w, idx // w], dim=-1).to(torch.int32)
+    count = valid.sum(dim=1, dtype=torch.int32)
     return Peaks(xy=xy, score=score, valid=valid, count=count)

@@ -1,9 +1,9 @@
 """Bicubic resize with cv2 INTER_CUBIC semantics (A=-0.75), as matmuls
-(port of islx/ops/resize.py, the parts the main path uses).
+(port of islx/ops/resize.py).
 
 Static resizes use host-built [n_out, n_in] matrices; the batched hand-crop
 resize builds its matrices on the device from each crop's (start, width).
-All contractions run in f32 (CUDA matmuls are full f32 by default).
+All contractions run in f32 (``resize_cubic`` inside ``true_f32``).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from islx_torch.core.runtime import div
+from islx_torch.core.runtime import div, true_f32
 
 _A = -0.75  # cv2's bicubic coefficient
 
@@ -42,6 +42,31 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
         cols = np.clip(i0 - 1 + t, 0, n_in - 1)
         np.add.at(mat, (rows, cols), w[:, t].astype(np.float32))
     return mat
+
+
+def cv2_round(x: float) -> int:
+    """cvRound: round half to even (cv2 uses it for fx/fy -> dsize)."""
+    return int(np.rint(x))
+
+
+def output_size(size: int, f: float) -> int:
+    return cv2_round(size * f)
+
+
+def resize_cubic(img: torch.Tensor, h_out: int, w_out: int,
+                 saturate_uint8: bool = False) -> torch.Tensor:
+    """Resize [..., H, W, C] (channels last) to (h_out, w_out), cv2
+    INTER_CUBIC, in f32. ``saturate_uint8`` rounds half to even and clips
+    to [0, 255], as cv2's uint8 resize does."""
+    dev = img.device
+    r = torch.from_numpy(_resize_matrix(img.shape[-3], h_out)).to(dev)
+    c = torch.from_numpy(_resize_matrix(img.shape[-2], w_out)).to(dev)
+    with true_f32():
+        x = torch.einsum("oh,...hwc->...owc", r, img.float())
+        x = torch.einsum("pw,...owc->...opc", c, x)
+    if saturate_uint8:
+        x = torch.clamp(torch.round(x), 0.0, 255.0)
+    return x
 
 
 def _cubic_weight(t: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ time by stage (``chip_smoke.py --profile``).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -121,13 +122,24 @@ def _body_pack_len(b: int, c: int, k: int, l: int, m: int) -> int:
                 + l * (m // 2))
 
 
+def _pallas_nms_env() -> bool:
+    """islx's ``ISLX_PALLAS_NMS`` switch (islx/pipeline/batch_pose.py:270)."""
+    env = os.environ.get("ISLX_PALLAS_NMS")
+    return env is not None and env not in ("0", "false")
+
+
 class BatchedBodyPipeline:
     """Body half of the fused step: frames -> (peaks, compact connections)
-    on the device, and the host unpack/assemble of its tables."""
+    on the device, and the host unpack/assemble of its tables.
+
+    ``pallas_nms`` (default: ``ISLX_PALLAS_NMS``, as islx reads it) selects
+    the peaks with the NMS+first-K kernel instead of the NMS mask kernel +
+    row-blocked selection; the peaks are the same."""
 
     def __init__(self, net, model_type: str = "body25",
                  cfg: Optional[PoseConfig] = None,
-                 compute_dtype=torch.bfloat16, top_m: int = 48):
+                 compute_dtype=torch.bfloat16, top_m: int = 48,
+                 pallas_nms: Optional[bool] = None):
         if model_type != "body25":
             raise NotImplementedError(
                 f"model {model_type!r}: only body25 is ported")
@@ -136,6 +148,8 @@ class BatchedBodyPipeline:
         self.cfg = cfg or PoseConfig(model_type=model_type)
         self.compute_dtype = compute_dtype
         self.top_m = top_m
+        self.pallas_nms = (_pallas_nms_env() if pallas_nms is None
+                           else bool(pallas_nms))
         self.limb_seq, self.map_idx = LIMB_TABLES[model_type]
 
     def core(self, frames: torch.Tensor, thre1: float, hb: int, wb: int):
@@ -145,8 +159,9 @@ class BatchedBodyPipeline:
             paf8, heat8 = self.net(frames.float() / 256.0 - 0.5,
                                    self.compute_dtype)
         with record_function("body_peaks"):
-            pk = find_peaks_fused_batched(heat8[..., :cfg.njoint - 1], hb,
-                                          wb, thre1, cfg.max_peaks)
+            pk = find_peaks_fused_batched(
+                heat8[..., :cfg.njoint - 1], hb, wb, thre1, cfg.max_peaks,
+                kernel="select" if self.pallas_nms else "mask")
         with record_function("paf_limbs"):
             ls = score_limbs_cell(paf8, pk.xy, pk.valid, self.limb_seq,
                                   self.map_idx, cfg.stride, cfg.thre2,
@@ -222,7 +237,8 @@ class FusedPosePipeline:
 
     ``body_params``/``hand_params`` are port weight states
     (:mod:`islx_torch.core.weights`); ``device`` defaults to ``"cuda"`` and
-    raises when no GPU is present unless ``"cpu"`` is asked for."""
+    raises when no GPU is present unless ``"cpu"`` is asked for;
+    ``pallas_nms`` is :class:`BatchedBodyPipeline`'s."""
 
     MAX_HANDS = 2
 
@@ -231,14 +247,14 @@ class FusedPosePipeline:
                  hand_cfg: Optional[HandConfig] = None,
                  det_cfg: Optional[DetectorConfig] = None,
                  compute_dtype=torch.bfloat16, top_m: int = 48,
-                 device=None):
+                 device=None, pallas_nms: Optional[bool] = None):
         refuse_int8()
         self.device = resolve_device(device)
         self.body = BatchedBodyPipeline(
             W.build(model_type, body_params, self.device, compute_dtype),
             model_type,
             pose_cfg or PoseConfig(model_type=model_type, max_peaks=16),
-            compute_dtype=compute_dtype, top_m=top_m)
+            compute_dtype=compute_dtype, top_m=top_m, pallas_nms=pallas_nms)
         self.hand = BatchedHandPipeline(
             W.build("hand", hand_params, self.device, compute_dtype),
             hand_cfg or HandConfig.production(), compute_dtype)

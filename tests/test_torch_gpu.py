@@ -4,10 +4,15 @@ is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
+import numpy as np
 import pytest
 import torch
 
+from chip_smoke import snake, spiral
+from islx_torch.ops import cc_label as CC
+from islx_torch.ops import nms_first_k as NF
 from islx_torch.ops import nms_mask as N
+from islx_torch.ops import paf_sample as PS
 
 
 def _need_gpu():
@@ -44,3 +49,119 @@ def test_nms_kernel_refuses_what_it_cannot_take():
         with pytest.raises((TypeError, ValueError)):
             N.nms_mask_rows(bad, 0.5)
     assert N.nms_mask_rows.launches == before
+
+
+def cc_maps(rng, h, w):
+    """[H,W,C] test maps: spiral, snake, full, empty, diagonal-only
+    contacts and seeded random blobs."""
+    diag = np.zeros((h, w), bool)
+    diag[::2, ::2] = True
+    diag[1::2, 1::2] = True
+    return np.stack([spiral(h, w), snake(h, w), np.ones((h, w), bool),
+                     np.zeros((h, w), bool), diag, rng.rand(h, w) > 0.55,
+                     rng.rand(h, w) > 0.4], -1)
+
+
+@pytest.mark.gpu
+def test_nms_first_k_bit_equal_on_card():
+    """The NMS+first-K kernel == its plain version, bit for bit, for both
+    border contracts, at the main path's shapes and ragged ones."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for shape, k in [((4, 25, 184, 144), 32), ((2, 25, 184, 328), 32),
+                     ((3, 5, 7, 130), 16), ((1, 2, 1, 1), 4)]:
+        x = torch.rand(shape, device="cuda", generator=g) - 0.2
+        x[..., ::3, ::5] = 0.5
+        for thre, border in [(0.5, 0.0), (0.0, 0.0), (-0.1, -float("inf"))]:
+            before = NF.nms_first_k.launches
+            got = NF.nms_first_k(x, thre, k, border)
+            torch.cuda.synchronize()
+            assert NF.nms_first_k.launches == before + 1
+            assert torch.equal(got, NF.nms_first_k_plain(x, thre, k, border))
+
+
+@pytest.mark.gpu
+def test_nms_first_k_bit_equal_on_sparse_planes():
+    """Whole planes read: a few planted peaks a plane, some in the last
+    row and the last chunk, and one plane whose K-th peak falls late."""
+    _need_gpu()
+    from chip_smoke import planted_field
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape in [(1, 25, 720, 1280), (8, 25, 184, 144), (3, 5, 37, 130)]:
+        x = planted_field(shape, g, 0.6, 32)
+        for border in (0.0, -float("inf")):
+            got = NF.nms_first_k(x, 0.6, 32, border)
+            want = NF.nms_first_k_plain(x, 0.6, 32, border)
+            n = shape[2] * shape[3]
+            assert torch.equal(got, want)
+            assert bool((want >= n - 1024).any() & (want < n).any())
+
+
+@pytest.mark.gpu
+def test_paf_sample_bit_equal_on_card():
+    """The fused PAF sampling kernel == its plain version on the card: ok
+    and score bit for bit (both round every step the same way)."""
+    _need_gpu()
+    rng = np.random.RandomState(2)
+    h, w, c, k = 184, 240, 25, 12
+    paf = torch.from_numpy(rng.rand(h, w, 52).astype(np.float32) - 0.4)
+    xy = np.stack([rng.randint(0, w, (c, k)), rng.randint(0, h, (c, k))], -1)
+    valid = rng.rand(c, k) > 0.3
+    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
+    args = (paf.cuda(), torch.from_numpy(xy.astype(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda(), LIMB_SEQ_BODY25, MAP_IDX_BODY25,
+            0.05, 10, float(h))
+    before = PS.paf_sample.launches
+    score, ok = PS.paf_sample(*args)
+    torch.cuda.synchronize()
+    assert PS.paf_sample.launches == before + 1
+    pscore, pok = PS.paf_sample_plain(*args)
+    assert torch.equal(ok, pok) and bool(ok.any())
+    assert torch.equal(score, pscore)
+
+
+@pytest.mark.gpu
+def test_cc_label_bit_equal_on_card():
+    """The union-find labelling kernel == its plain version, bit for bit,
+    on the spiral, snake, full and blob maps."""
+    _need_gpu()
+    rng = np.random.RandomState(3)
+    for h, w in [(368, 368), (97, 61), (1, 40)]:
+        maps = torch.from_numpy(cc_maps(rng, h, w)).cuda()
+        before = CC.label_components.launches
+        got = CC.label_components(maps)
+        torch.cuda.synchronize()
+        assert CC.label_components.launches == before + 1
+        assert torch.equal(got, CC.label_components_plain(maps))
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_what_they_cannot_take():
+    """Bad CUDA inputs raise before any launch; nothing falls back."""
+    _need_gpu()
+    x = torch.rand(2, 3, 8, 9, device="cuda")
+    before = NF.nms_first_k.launches
+    for bad in (x.double(), x[0], x.transpose(2, 3)):
+        with pytest.raises((TypeError, ValueError)):
+            NF.nms_first_k(bad, 0.5, 4)
+    assert NF.nms_first_k.launches == before
+    m = torch.rand(8, 9, 3, device="cuda") > 0.5
+    before = CC.label_components.launches
+    for bad in (m.to(torch.uint8), m[0], m.transpose(0, 1)):
+        with pytest.raises((TypeError, ValueError)):
+            CC.label_components(bad)
+    assert CC.label_components.launches == before
+    paf = torch.rand(8, 9, 4, device="cuda")
+    xy = torch.zeros(2, 3, 2, dtype=torch.int32, device="cuda")
+    valid = torch.ones(2, 3, dtype=torch.bool, device="cuda")
+    seq, idx = np.array([[0, 1]]), np.array([[2, 3]])
+    before = PS.paf_sample.launches
+    for args in ((paf.double(), xy, valid), (paf, xy.long(), valid),
+                 (paf, xy, valid.int()), (paf, xy, valid.cpu()),
+                 (paf.transpose(0, 1), xy, valid)):
+        with pytest.raises((TypeError, ValueError)):
+            PS.paf_sample(*args, seq, idx)
+    with pytest.raises(ValueError):
+        PS.paf_sample(paf, xy, valid, seq, np.array([[2, 4]]))
+    assert PS.paf_sample.launches == before

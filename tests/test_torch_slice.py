@@ -2,7 +2,8 @@
 against islx's on the same frames and the same full-width weights, in f32.
 
 islx runs its TPU main path (``ISLX_PALLAS_MASK=1``: the Pallas NMS-mask
-kernel, in interpret mode on the CPU). The integer planes of the packed
+kernel, in interpret mode on the CPU) or, under ``ISLX_PALLAS_NMS=1``, its
+opt-in NMS+first-K kernel; the port reads the same switch. The integer planes of the packed
 buffer (peak coordinates, counts, pair indices, hand boxes, hand peaks and
 found bits) must be word-equal; the f16 score words agree within one f16
 rounding. The inputs are deterministic: the arm-joint heat channels get a
@@ -52,16 +53,30 @@ def thre1_for(net, frames) -> float:
 @pytest.mark.parametrize("input_format", ["bgr", "yuv420"])
 def test_fused_step_word_equal(monkeypatch, slice_params, input_format):
     monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
+    monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
+    _check_word_equal(slice_params, input_format, select=False)
+
+
+def test_fused_step_select_word_equal(monkeypatch, slice_params):
+    """``ISLX_PALLAS_NMS=1``: islx's NMS+first-K Pallas kernel against the
+    port's select path (the nms_first_k kernel's plain version here)."""
+    monkeypatch.setenv("ISLX_PALLAS_NMS", "1")
+    _check_word_equal(slice_params, "yuv420", select=True)
+
+
+def _check_word_equal(slice_params, input_format, select):
     body, hand = slice_params
     jp = JBP.FusedPosePipeline(body, hand, pose_cfg=JPose(**POSE),
                                hand_cfg=JHand(**HAND),
                                compute_dtype=jnp.float32)
-    assert jp.body.pallas_mask and jp.body.pack_mode == "bits16"
+    assert jp.body.pack_mode == "bits16"
+    assert (jp.body.pallas_nms, jp.body.pallas_mask) == (select, not select)
     tp = TBP.FusedPosePipeline(W.from_islx_params(body),
                                W.from_islx_params(hand),
                                pose_cfg=PoseConfig(**POSE),
                                hand_cfg=HandConfig(**HAND),
                                compute_dtype=torch.float32, device="cpu")
+    assert tp.body.pallas_nms == select
     b, hb, wb = 2, 48, 48
     frames = (np.random.RandomState(0).rand(b, hb, wb, 3) * 255
               ).astype(np.uint8)
