@@ -10,8 +10,9 @@ Phases (any failure exits non-zero and the last line is never printed):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (indices, labels and ok bits bit-equal), with
    median times over 20 launches beside the bound; NMS+first-K on sparse
-   maps (whole planes read, peaks in the last rows) and dense ones (early
-   exit); the plain PAF scoring on the card bit-equal to the CPU's;
+   maps (whole planes read, peaks in the last rows), dense ones (early
+   exit) and maps with peaks where its row bands meet, K = 32 and K = 1;
+   the plain PAF scoring on the card bit-equal to the CPU's;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
@@ -35,6 +36,10 @@ runs phases 1-2, then profiles the fused step of phase 4 for both hand
 configs with torch.profiler: device ms per pipeline stage, the kernels
 that take the most device time, the device's busy share of the steps'
 wall time and the CPM convolutions' achieved rate, as one JSON line.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 only and prints phase 3's numbers as one JSON line.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -127,6 +132,58 @@ def planted_field(shape, gen, thre: float, k: int, per_plane: int = 4
     return x
 
 
+def band_field(shape, gen, thre: float, k: int) -> torch.Tensor:
+    """Maps whose peaks sit where the NMS+first-K kernel's row bands meet
+    (``nms_first_k.band_plan``). Planes by index mod 4: 0, peaks on the
+    first and the last row of every band and a plateau across each band
+    boundary; 1, k + 3 peaks in band 0 alone and 2k in every later band;
+    2, k - 1 peaks in band 0 and 3 in the last band, so the k-th peak lies
+    in the last band; 3, k // 2 peaks over the plane, fewer than k. Every
+    other pixel is at most thre."""
+    from islx_torch.ops.nms_first_k import band_plan
+
+    bsz, c, h, w = shape
+    n = h * w
+    rows, bands, _ = band_plan(h, w)
+    x = thre - 0.3 * smooth_field(shape, gen, thre)
+    pos = [[], [], [], []]
+    for b in range(bands):
+        y0, y1 = b * rows, min((b + 1) * rows, h)
+        col = (5 * b) % w
+        pos[0] += [y0 * w + col, (y1 - 1) * w + col]
+        if y1 < h:
+            pos[0].append(y1 * w + col)        # the next band's first row
+        pos[1] += range(y0 * w, y1 * w, 2)[:k + 3 if b == 0 else 2 * k]
+    last = (bands - 1) * rows * w
+    pos[2] = [*range(0, min(rows, h) * w, 2)[:k - 1], last,
+              (last + n - 1) // 2, n - 1]
+    pos[3] = np.linspace(0, n - 1, k // 2).astype(np.int64).tolist()
+    flat = x.view(bsz * c, n)
+    for q, p in enumerate(pos):
+        if p and q < bsz * c:
+            flat[q::4][:, torch.tensor(sorted(set(p)), device="cuda")] = (
+                thre + 0.02)
+    return x
+
+
+def band_cases_hold(want: torch.Tensor, h: int, w: int, k: int) -> bool:
+    """Whether the indices of a band_field with two bands or more show its
+    cases: a peak on a band's first row after row 0 and on a band's last
+    row, a plane whose k-th peak lies in band 0, one whose k-th peak lies
+    in the last band, and one with fewer than k peaks."""
+    from islx_torch.ops.nms_first_k import band_plan
+
+    rows, bands, _ = band_plan(h, w)
+    n = h * w
+    y = torch.where(want < n, want // w, -1)
+    kth = want[..., k - 1]
+    return bool(((y > 0) & (y % rows == 0)).any()
+                and (y % rows == rows - 1).any()
+                and (kth < rows * w).any()
+                and ((kth >= (bands - 1) * rows * w) & (kth < n)).any()
+                and (kth == n).any())
+
+
 def check_nms_kernel(shapes, thre: float = 0.5) -> list:
     from islx_torch.ops import nms_mask as N
 
@@ -170,28 +227,35 @@ def bound(bytes_: float, ops: float) -> tuple:
 
 def check_nms_first_k(cases, k: int = 32) -> list:
     """nms_first_k == its plain version (both border contracts), timed with
-    the contract's 0.0 border, or -inf where the case says so. A sparse
+    the contract's 0.0 border, or -inf where the case says so. A "sparse"
     case plants a few peaks a plane (planted_field), so the kernel reads
-    whole planes and finds peaks in their last rows and last chunk; a dense
-    case fills K early in every plane (smooth_field)."""
+    whole planes and finds peaks in their last rows; a "dense" case fills K
+    early in every plane (smooth_field); a "bands" case puts peaks where
+    the kernel's row bands meet (band_field)."""
     from islx_torch.ops import nms_first_k as NF
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for shape, thre, border, sparse in cases:
+    for shape, thre, border, field in cases:
         bsz, c, h, w = shape
         n = h * w
-        x = (planted_field(shape, gen, thre, k) if sparse
-             else smooth_field(shape, gen, thre))
+        x = {"sparse": lambda: planted_field(shape, gen, thre, k),
+             "dense": lambda: smooth_field(shape, gen, thre),
+             "bands": lambda: band_field(shape, gen, thre, k)}[field]()
         want = NF.nms_first_k_plain(x, thre, k, border)
         found = want < n
         if not bool(found.any()):
             raise SystemExit(f"nms_first_k check at {shape}: no peaks")
         kth = want[..., k - 1]
         late = bool(((kth < n) & (kth >= n // 2)).any())
-        if sparse and not (late and bool((want[found] >= n - 1024).any())):
+        if field == "sparse" and not (
+                late and bool((want[found] >= n - 1024).any())):
             raise SystemExit(f"nms_first_k check at {shape}: no peak in the "
-                             f"last chunk or no plane's K-th peak late")
+                             f"last 1024 pixels or no plane's K-th peak late")
+        if (field == "bands" and NF.band_plan(h, w)[1] > 1
+                and not band_cases_hold(want, h, w, k)):
+            raise SystemExit(f"nms_first_k check at {shape} K={k}: the band "
+                             f"cases are not all present")
         for bd in (0.0, -float("inf")):
             got = NF.nms_first_k(x, thre, k, bd)
             torch.cuda.synchronize()
@@ -207,15 +271,15 @@ def check_nms_first_k(cases, k: int = 32) -> list:
                              n).sum())
         bound_ms, by = bound(px * 4 + want.numel() * 4, px * 5)
         row = {"shape": list(shape), "k": k, "border": border,
-               "sparse": sparse, "bit_equal": True, "max_abs_err": 0,
+               "field": field, "bit_equal": True, "max_abs_err": 0,
                "peaks": int(found.sum()), "planes_read_whole": int(
                    (kth == n).sum()),
                "ms": cuda_ms(lambda: NF.nms_first_k(x, thre, k, border)),
                "plain_ms": cuda_ms(
                    lambda: NF.nms_first_k_plain(x, thre, k, border)),
                "bound_ms": bound_ms, "bound_by": by}
-        log(f"  nms_first_k {shape} K={k} border {border}"
-            f"{' sparse' if sparse else ''}: bit-equal, {row['peaks']} peaks,"
+        log(f"  nms_first_k {shape} K={k} border {border} {field}: "
+            f"bit-equal, {row['peaks']} peaks,"
             f" {row['planes_read_whole']}/{bsz * c} planes read whole, "
             f"kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
@@ -793,9 +857,13 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive islx_torch on one GPU.")
-    ap.add_argument("--profile", action="store_true",
-                    help="instead of phases 3-6, profile the fused step "
-                         "(device ms per stage, top kernels, busy share)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="instead of phases 3-6, profile the fused step "
+                           "(device ms per stage, top kernels, busy share)")
+    mode.add_argument("--kernels", action="store_true",
+                      help="run phases 1-3 only: build the kernels and hold "
+                           "each against its plain version, with times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -817,37 +885,50 @@ def main(argv=None) -> int:
     log(f"[2] build: {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    hand_cfg, note = HandConfig.gated()
-    hand_160 = dataclasses.replace(HandConfig.production(160.0 / 368.0),
-                                   stages=5)
-    if args.profile:
-        log("[P] fused step under torch.profiler, full width, bf16")
-        prof = [profile_step(hand_cfg), profile_step(hand_160)]
-        log(json.dumps({"profile": prof, "card": card}))
+    def finish(result: dict) -> int:
+        log(json.dumps(result))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    hand_cfg, note = HandConfig.gated()
+    hand_160 = dataclasses.replace(HandConfig.production(160.0 / 368.0),
+                                   stages=5)
+    if args.profile:
+        log("[P] fused step under torch.profiler, full width, bf16")
+        prof = [profile_step(hand_cfg), profile_step(hand_160)]
+        return finish({"profile": prof, "card": card})
+
     log("[3] kernels against their plain versions")
     nms_rows = check_nms_kernel([(192, 25, 184, 144), (16, 25, 184, 328),
                                  (3, 25, 37, 130)])
-    # at the parity Body's shape a threshold near 1 leaves a few peaks a
-    # plane, as the calibrated path does, so the kernel reads whole planes
     # sparse: the parity Body's shape and the select step's, with a few
     # peaks a plane as the calibrated paths give (whole planes read);
-    # dense: K peaks early in every plane (the early exit)
-    nfk_rows = check_nms_first_k([((1, 25, 720, 1280), 0.6, -float("inf"),
-                                   True),
-                                  ((192, 25, 184, 144), 0.5, 0.0, True),
-                                  ((192, 25, 184, 144), 0.5, 0.0, False),
-                                  ((16, 25, 184, 328), 0.5, 0.0, False),
-                                  ((3, 25, 37, 130), 0.5, 0.0, True),
-                                  ((3, 25, 37, 130), 0.5, 0.0, False)])
+    # dense: K peaks early in every plane (the early exit); bands: peaks
+    # where the kernel's row bands meet, at the main shapes and ragged ones
+    inf = -float("inf")
+    nfk_rows = check_nms_first_k([((1, 25, 720, 1280), 0.6, inf, "sparse"),
+                                  ((192, 25, 184, 144), 0.5, 0.0, "sparse"),
+                                  ((192, 25, 184, 144), 0.5, 0.0, "dense"),
+                                  ((16, 25, 184, 328), 0.5, 0.0, "dense"),
+                                  ((3, 25, 37, 130), 0.5, 0.0, "sparse"),
+                                  ((3, 25, 37, 130), 0.5, 0.0, "dense"),
+                                  ((1, 25, 720, 1280), 0.5, inf, "bands"),
+                                  ((192, 25, 184, 144), 0.5, 0.0, "bands"),
+                                  ((3, 25, 37, 130), 0.5, 0.0, "bands")])
+    nfk_rows += check_nms_first_k([((16, 25, 184, 328), 0.5, 0.0, "bands"),
+                                   ((3, 5, 7, 130), 0.5, 0.0, "bands"),
+                                   ((1, 2, 1, 1), 0.5, 0.0, "bands")], k=1)
     paf_rows = check_paf_sample()
     cc_rows = check_cc_label([368, 736, 256])
     torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
+    if args.kernels:
+        return finish({"phase3": {"nms_mask_rows": nms_rows,
+                                  "nms_first_k": nfk_rows,
+                                  "paf_sample": paf_rows, "cc_label": cc_rows},
+                       "card": card, "seconds": time.perf_counter() - t_start})
 
     log("[4] fused pose step, full width, bf16")
     log(f"    hand config: {note}")
@@ -903,12 +984,7 @@ def main(argv=None) -> int:
         "fused_step": [step184, step160], "select_step": step_sel,
         "translation": trans, "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
-    log(json.dumps(kernels))
-    log(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(kernels)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ parity path's ``find_peaks``). The two agree only for ``thre1 > 0``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -45,12 +47,45 @@ def nms_first_k_plain(blurred: torch.Tensor, thre1, k: int,
     return first_k_masked(mask, k).reshape(bsz, c, k)
 
 
+# A band aims at this many pixels (16 KB of f32): thousands of blocks at
+# the parity Body's 25 planes, and a band read whole in one go of copies.
+BAND_PX = 4096
+# Shared memory one block may take on sm_90 (227 KB), less room for the
+# kernel's static shared variables.
+MAX_SMEM = 227 * 1024 - 256
+# Blocks a launch should keep: eight waves of the eight 256-thread blocks
+# that each of an H100's 132 SMs holds at once.
+MIN_BLOCKS = 8 * 8 * 132
+
+
+def band_plan(h: int, w: int):
+    """-> (rows a band, bands a plane, shared-memory bytes a block) for
+    [.., H, W] planes: bands of about BAND_PX pixels, as even as the rows
+    allow, that cover rows 0..H-1 once each; a block stages its band and a
+    halo row above and below, plus up to 3 floats of alignment pad."""
+    rows = max(1, -(-BAND_PX // w))
+    bands = -(-h // rows)
+    rows = -(-h // bands)          # the same number of bands, evened out
+    return rows, bands, ((rows + 2) * w + 3) * 4
+
+
+def bands_per_block(planes: int, bands: int) -> int:
+    """Consecutive bands of one plane that a block reads in turn: up to 4,
+    as long as the launch keeps MIN_BLOCKS blocks. A block leaves at its
+    first band that holds k peaks, so on dense maps fewer blocks are
+    launched only to find their band after the plane's cutoff."""
+    group = 1
+    while group < 4 and planes * -(-bands // (group + 1)) >= MIN_BLOCKS:
+        group += 1
+    return group
+
+
+@functools.cache
 def _kernel():
     lib = _build.load("nms_first_k")
     fn = lib.islx_nms_first_k
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,9 +95,9 @@ def nms_first_k(blurred: torch.Tensor, thre1, k: int, border: float = 0.0
     """blurred [B,C,H,W] f32 -> idx [B,C,K] int32 ascending flat (y*W+x)
     indices of each channel's first k NMS peaks, sentinel H*W past them.
 
-    CUDA tensors go through the sm_90a kernel on the current stream (no
-    synchronisation; ``nms_first_k.launches`` counts the launches), CPU
-    tensors through :func:`nms_first_k_plain`."""
+    CUDA tensors go through the sm_90a kernel's two passes on the current
+    stream (no synchronisation; ``nms_first_k.launches`` counts the calls),
+    CPU tensors through :func:`nms_first_k_plain`."""
     if blurred.device.type == "cpu":
         return nms_first_k_plain(blurred, thre1, k, border)
     if blurred.device.type != "cuda":
@@ -79,13 +114,33 @@ def nms_first_k(blurred: torch.Tensor, thre1, k: int, border: float = 0.0
     bsz, c, h, w = blurred.shape
     if h * w >= 2 ** 31:
         raise ValueError(f"nms_first_k: plane {h}x{w} too large")
-    idx = torch.empty((bsz, c, k), dtype=torch.int32, device=blurred.device)
+    dev = blurred.device
     if blurred.numel() == 0:
-        return idx.fill_(h * w)
-    with torch.cuda.device(blurred.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(blurred.data_ptr(), idx.data_ptr(), _thre_f32(thre1),
-                        float(border), bsz * c, h, w, k, stream)
+        return torch.full((bsz, c, k), h * w, dtype=torch.int32, device=dev)
+    planes = bsz * c
+    rows, bands, smem = band_plan(h, w)
+    if smem > MAX_SMEM:
+        raise ValueError(f"nms_first_k: rows of {w} pixels do not fit a "
+                         f"block's shared memory")
+    if planes * bands >= 2 ** 31:
+        raise ValueError(f"nms_first_k: {planes} planes of {bands} bands "
+                         f"are too many")
+    # one allocation, for host time: the output [B,C,K], then the kernel's
+    # scratch (each band's first k indices and its count, each plane's
+    # cutoff), which lives as long as the output does
+    buf = torch.empty(planes * (k + bands * (k + 1) + 1), dtype=torch.int32,
+                      device=dev)
+    idx = buf[:planes * k].view(bsz, c, k)
+    # the raw handle of the current stream: torch.cuda.current_stream()
+    # builds a Stream object, which costs more host time than the kernel
+    # takes on dense maps; the device guard only where it is needed
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = _kernel()(blurred.data_ptr(), idx.data_ptr(),
+                        buf.data_ptr() + 4 * planes * k, _thre_f32(thre1),
+                        float(border), planes, h, w, rows, bands,
+                        bands_per_block(planes, bands), k, smem, stream)
     if err != 0:
         raise RuntimeError(f"nms_first_k: kernel launch failed "
                            f"(cudaError {err})")

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import snake, spiral
+from chip_smoke import band_field, band_cases_hold, snake, spiral
 from islx_torch.ops import cc_label as CC
 from islx_torch.ops import nms_first_k as NF
 from islx_torch.ops import nms_mask as N
@@ -65,11 +65,14 @@ def cc_maps(rng, h, w):
 @pytest.mark.gpu
 def test_nms_first_k_bit_equal_on_card():
     """The NMS+first-K kernel == its plain version, bit for bit, for both
-    border contracts, at the main path's shapes and ragged ones."""
+    border contracts, at the main path's shapes and ragged ones (W = 130:
+    odd rows start off a 16-byte boundary), K = 1 included."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(1)
     for shape, k in [((4, 25, 184, 144), 32), ((2, 25, 184, 328), 32),
-                     ((3, 5, 7, 130), 16), ((1, 2, 1, 1), 4)]:
+                     ((1, 3, 720, 1280), 32), ((3, 5, 7, 130), 16),
+                     ((3, 25, 37, 130), 32), ((3, 25, 37, 130), 1),
+                     ((1, 2, 1, 1), 4), ((1, 2, 1, 1), 1)]:
         x = torch.rand(shape, device="cuda", generator=g) - 0.2
         x[..., ::3, ::5] = 0.5
         for thre, border in [(0.5, 0.0), (0.0, 0.0), (-0.1, -float("inf"))]:
@@ -83,7 +86,10 @@ def test_nms_first_k_bit_equal_on_card():
 @pytest.mark.gpu
 def test_nms_first_k_bit_equal_on_sparse_planes():
     """Whole planes read: a few planted peaks a plane, some in the last
-    row and the last chunk, and one plane whose K-th peak falls late."""
+    rows and one plane whose K-th peak falls late; then peaks where the
+    kernel's row bands meet (band_field): on a band's first and last row,
+    a band that alone holds K peaks before fuller ones, a K-th peak in the
+    last band and fewer than K peaks, for K = 32 and K = 1."""
     _need_gpu()
     from chip_smoke import planted_field
 
@@ -96,6 +102,17 @@ def test_nms_first_k_bit_equal_on_sparse_planes():
             n = shape[2] * shape[3]
             assert torch.equal(got, want)
             assert bool((want >= n - 1024).any() & (want < n).any())
+    # [192,25,184,144] has each block read 4 bands in turn
+    for shape in [(1, 25, 720, 1280), (192, 25, 184, 144), (2, 25, 184, 328),
+                  (3, 5, 7, 130), (3, 25, 37, 130), (1, 2, 1, 1)]:
+        h, w = shape[2:]
+        for k in (32, 1):
+            x = band_field(shape, g, 0.5, k)
+            for border in (0.0, -float("inf")):
+                want = NF.nms_first_k_plain(x, 0.5, k, border)
+                assert torch.equal(NF.nms_first_k(x, 0.5, k, border), want)
+            if NF.band_plan(h, w)[1] > 1:
+                assert band_cases_hold(want, h, w, k)
 
 
 @pytest.mark.gpu

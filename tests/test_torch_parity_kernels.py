@@ -66,6 +66,30 @@ def test_nms_first_k_border_contracts(rng):
     assert not np.array_equal(zero, ninf)
 
 
+@pytest.mark.parametrize("h,w", [(7, 130), (37, 130), (1, 1), (720, 1280),
+                                 (184, 144), (184, 328)])
+def test_nms_first_k_bands_cover_each_row_once(h, w):
+    """The CUDA kernel's band plan: bands of ``rows`` rows cover rows
+    0..H-1 exactly once, none is empty, and a block's staged band with its
+    halo rows fits the shared memory it is given."""
+    rows, bands, smem = TNF.band_plan(h, w)
+    seen = np.zeros(h, np.int64)
+    for b in range(bands):
+        y0, y1 = b * rows, min((b + 1) * rows, h)
+        assert y0 < y1
+        seen[y0:y1] += 1
+    np.testing.assert_array_equal(seen, np.ones(h, np.int64))
+    assert smem <= TNF.MAX_SMEM
+    assert rows * w <= max(TNF.BAND_PX, w) * 2
+    # bands a block reads in turn: more than one only while the launch
+    # keeps enough blocks
+    for planes in (1, 25, 400, 4800):
+        group = TNF.bands_per_block(planes, bands)
+        blocks = planes * -(-bands // group)
+        assert 1 <= group <= 4
+        assert group == 1 or blocks >= TNF.MIN_BLOCKS
+
+
 def _peak_tables(rng, c, k, h, w):
     count = rng.randint(0, k + 1, c)
     xy = np.zeros((c, k, 2), np.int32)
