@@ -8,8 +8,10 @@ Phases (any failure exits non-zero and the last line is never printed):
 2. build: compile the four CUDA kernels from islx_torch/csrc (one nvcc
    per source, all started together, sm_90a);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (indices, labels and ok bits bit-equal), with
-   median times over 20 launches beside the bound; NMS+first-K on sparse
+   the main paths' shapes (masks, indices, labels and ok bits bit-equal),
+   with median times over 20 launches beside the bound; the NMS mask on
+   smooth maps and on maps with peaks where its row bands meet, also timed
+   as calls queued back to back (the device's time); NMS+first-K on sparse
    maps (whole planes read, peaks in the last rows), dense ones (early
    exit) and maps with peaks where its row bands meet, K = 32 and K = 1;
    the plain PAF scoring on the card bit-equal to the CPU's;
@@ -34,8 +36,9 @@ Phases (any failure exits non-zero and the last line is never printed):
 
 runs phases 1-2, then profiles the fused step of phase 4 for both hand
 configs with torch.profiler: device ms per pipeline stage, the kernels
-that take the most device time, the device's busy share of the steps'
-wall time and the CPM convolutions' achieved rate, as one JSON line.
+that take the most device time, the port's own kernels' device time, the
+device's busy share of the steps' wall time and the CPM convolutions'
+achieved rate, as one JSON line.
 
     python3 chip_smoke.py --kernels
 
@@ -49,6 +52,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -89,6 +93,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def stream_ms(fn, reps: int = 20) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls queued back to back between
+    two CUDA events: the device's time where the host queues faster than
+    the device runs, else the host's."""
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def smooth_field(shape, gen, thre: float) -> torch.Tensor:
@@ -184,36 +204,45 @@ def band_cases_hold(want: torch.Tensor, h: int, w: int, k: int) -> bool:
                 and (kth == n).any())
 
 
-def check_nms_kernel(shapes, thre: float = 0.5) -> list:
+def check_nms_kernel(cases, thre: float = 0.5) -> list:
+    """nms_mask_rows == its plain version, bit for bit, on "smooth" maps
+    (smooth_field: plateaus and thre1 ties) and "bands" maps (band_field:
+    peaks on each row band's first and last row, a plateau across each band
+    boundary). Timed as single calls (``ms``, a call's host time included)
+    and as calls queued back to back (``stream_ms``)."""
+    from islx_torch.ops import nms_first_k as NF
     from islx_torch.ops import nms_mask as N
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for shape in shapes:
-        x = smooth_field(shape, gen, thre)
-        m, c = N.nms_mask_rows(x, thre)
+    for shape, field in cases:
+        bsz, c, h, w = shape
+        x = (smooth_field(shape, gen, thre) if field == "smooth"
+             else band_field(shape, gen, thre, 32))
+        m, cnt = N.nms_mask_rows(x, thre)
         torch.cuda.synchronize()
         mp, cp = N.nms_mask_rows_plain(x, thre)
         err = max(int((m.int() - mp.int()).abs().max()),
-                  int((c - cp).abs().max()))
-        if not (torch.equal(m, mp) and torch.equal(c, cp)):
+                  int((cnt - cp).abs().max()))
+        if not (torch.equal(m, mp) and torch.equal(cnt, cp)):
             raise SystemExit(f"nms_mask_rows differs from its plain version "
-                             f"at {shape}: max abs err {err}")
+                             f"at {shape} ({field}): max abs err {err}")
         px = x.numel()
-        rows_n = shape[0] * shape[1] * shape[2]
+        rows_n = bsz * c * h
         bytes_ = px * 4 + px * 1 + rows_n * 4   # read f32, write u8 + s32
         ops = px * 5                            # five f32 comparisons
-        bound_s = max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S)
-        row = {"shape": list(shape), "bit_equal": True, "max_abs_err": err,
-               "peaks": int(c.sum()),
+        bound_ms, by = bound(bytes_, ops)
+        row = {"shape": list(shape), "field": field, "bit_equal": True,
+               "max_abs_err": err, "peaks": int(cp.sum()),
+               "bands": NF.band_plan(h, w)[1],
                "ms": cuda_ms(lambda: N.nms_mask_rows(x, thre)),
+               "stream_ms": stream_ms(lambda: N.nms_mask_rows(x, thre)),
                "plain_ms": cuda_ms(lambda: N.nms_mask_rows_plain(x, thre)),
-               "bound_ms": bound_s * 1e3,
-               "bound_by": ("bytes" if bytes_ / PEAK_BYTES_PER_S
-                            >= ops / PEAK_F32_OPS_PER_S else "operations")}
-        log(f"  nms_mask_rows {shape}: bit-equal, {row['peaks']} peaks, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+               "bound_ms": bound_ms, "bound_by": by}
+        log(f"  nms_mask_rows {shape} {field}: bit-equal, {row['peaks']} "
+            f"peaks, {row['bands']} bands a plane, kernel {row['ms']:.4f} "
+            f"ms, back to back {row['stream_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
         rows.append(row)
     return rows
 
@@ -520,6 +549,8 @@ def integer_planes(pipe, packed, b) -> dict:
             "boxes": boxes, "hand_peaks": peaks}
 
 
+PORT_KERNELS = ("nms_mask_kernel", "band_kernel", "gather_kernel",
+                "paf_sample_kernel", "cc_init", "cc_merge", "cc_flatten")
 STAGES = ("yuv420_to_bgr", "body_cpm", "body_peaks", "paf_limbs",
           "hand_boxes", "hand_crops", "hand_cpm", "hand_peaks", "pack")
 
@@ -577,6 +608,11 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
              "hand_cpm": 2 * b * conv_flops("hand", size, size,
                                             hand_cfg.stages)}
     top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:12]
+    # the port's own kernels (csrc/*.cu, launched through ctypes): the
+    # profiler traces them but counts them in no stage's range
+    port = {k: sum(ms for name, ms in kernel_ms.items()
+                   if re.search(rf"(^|::){k}(\(|$)", name))
+            for k in PORT_KERNELS}
     res = {"hand": f"{size}px/s{hand_cfg.stages}", "batch": b,
            "bucket": [hb, wb], "steps": steps, "wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms,
@@ -585,11 +621,14 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
                                 for k, v in flops.items()},
            "conv_bound_ms": {k: v / PEAK_BF16_OPS_PER_S * 1e3
                              for k, v in flops.items()},
+           "port_kernel_ms": port,
            "top_kernels": [{"name": n[:90], "ms": t} for n, t in top]}
     log(f"  profile {res['hand']}: wall {wall_ms:.1f} ms/step, device "
         f"{device_ms:.1f} ms ({100 * res['device_busy_share']:.1f}% busy)")
     for name, ms in stage_ms.items():
         log(f"    {name:14s} {ms:8.2f} ms")
+    log(f"    port kernels (ms/step): "
+        f"{ {k: round(v, 4) for k, v in port.items() if v} }")
     return res
 
 
@@ -902,8 +941,14 @@ def main(argv=None) -> int:
         return finish({"profile": prof, "card": card})
 
     log("[3] kernels against their plain versions")
-    nms_rows = check_nms_kernel([(192, 25, 184, 144), (16, 25, 184, 328),
-                                 (3, 25, 37, 130)])
+    # smooth: the fused step's shape, translation's and a ragged one; bands:
+    # peaks where the kernel's row bands meet, [2,3,40,1001] on the 1-pixel
+    # path with rows off 16-byte boundaries; [1,2,1,1]: a call's host floor
+    nms_rows = check_nms_kernel(
+        [((192, 25, 184, 144), "smooth"), ((16, 25, 184, 328), "smooth"),
+         ((3, 25, 37, 130), "smooth"), ((192, 25, 184, 144), "bands"),
+         ((16, 25, 184, 328), "bands"), ((3, 25, 37, 130), "bands"),
+         ((2, 3, 40, 1001), "bands"), ((1, 2, 1, 1), "smooth")])
     # sparse: the parity Body's shape and the select step's, with a few
     # peaks a plane as the calibrated paths give (whole planes read);
     # dense: K peaks early in every plane (the early exit); bands: peaks

@@ -4,11 +4,13 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``islx_torch/_build/lib<name>.so`` the first
 time a kernel of it is launched in a process, and loaded with ``ctypes``.
 Nothing is built on import, so the package imports on machines without
-``nvcc`` or a GPU. A library newer than its source is reused.
+``nvcc`` or a GPU. A library newer than its source and every header in
+``csrc/`` is reused.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -40,12 +42,14 @@ def nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    -> the library's path. Raises with nvcc's output if it fails."""
+    """Compile ``csrc/<name>.cu`` unless a library newer than it and than
+    every ``csrc/*.cuh`` exists; -> the library's path. Raises with nvcc's
+    output if it fails."""
     src = os.path.join(CSRC, f"{name}.cu")
     out = os.path.join(BUILD, f"lib{name}.so")
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
+    newest = max(map(os.path.getmtime,
+                     [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     os.makedirs(BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)

@@ -9,7 +9,9 @@ cannot take raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from islx_torch.ops import _build
+from islx_torch.ops._bands import MAX_SMEM, band_plan
 
 
 def _thre_f32(thre1) -> float:
@@ -50,12 +53,12 @@ def nms_mask_rows_plain(blurred: torch.Tensor, thre1
     return mask.to(torch.uint8), mask.sum(-1, dtype=torch.int32)
 
 
+@functools.cache
 def _kernel():
     lib = _build.load("nms_mask")
     fn = lib.islx_nms_mask_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,17 +83,32 @@ def nms_mask_rows(blurred: torch.Tensor, thre1
     if not blurred.is_contiguous():
         raise ValueError("nms_mask_rows: input must be contiguous")
     bsz, c, h, w = blurred.shape
-    thre = _thre_f32(thre1)
-    mask = torch.empty((bsz, c, h, w), dtype=torch.uint8,
-                       device=blurred.device)
-    row_cnt = torch.empty((bsz, c, h), dtype=torch.int32,
-                          device=blurred.device)
-    if mask.numel() == 0:
+    dev = blurred.device
+    planes, px = bsz * c, blurred.numel()
+    # one allocation, for host time: the mask, then the row counts at a
+    # 16-byte-aligned offset
+    cnt_at = -(-px // 16) * 16
+    buf = torch.empty(cnt_at + 4 * planes * h, dtype=torch.uint8, device=dev)
+    mask = buf[:px].view(bsz, c, h, w)
+    row_cnt = buf[cnt_at:].view(torch.int32).view(bsz, c, h)
+    if px == 0:
         return mask, row_cnt.zero_()
-    with torch.cuda.device(blurred.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(blurred.data_ptr(), mask.data_ptr(),
-                        row_cnt.data_ptr(), thre, bsz * c, h, w, stream)
+    rows, bands, smem = band_plan(h, w)
+    smem += 4 * rows                       # a counter a row
+    if smem > MAX_SMEM:
+        raise ValueError(f"nms_mask_rows: rows of {w} pixels do not fit a "
+                         f"block's shared memory")
+    if planes * bands >= 2 ** 31:
+        raise ValueError(f"nms_mask_rows: {planes} planes of {bands} bands "
+                         f"are too many")
+    # the raw handle of the current stream (a Stream object costs host
+    # time of the order of the kernel); the device guard only where needed
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = _kernel()(blurred.data_ptr(), buf.data_ptr(),
+                        buf.data_ptr() + cnt_at, _thre_f32(thre1), planes, h,
+                        w, rows, bands, smem, stream)
     if err != 0:
         raise RuntimeError(f"nms_mask_rows: kernel launch failed "
                            f"(cudaError {err})")

@@ -183,3 +183,39 @@ def test_int8_is_refused(monkeypatch, tmp_path):
     monkeypatch.setenv("ISLX_INT8", "0")
     (tmp_path / "gates.json").write_text(json.dumps({"int8_default": "GO"}))
     cli.refuse_gated_int8(str(hand))  # env 0 forces bf16, as in islx
+
+
+def test_build_rebuilds_on_a_changed_header(monkeypatch, tmp_path):
+    """A kernel library is reused while it is newer than its source and
+    every csrc header, and rebuilt once either is newer."""
+    from islx_torch.ops import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "s.cuh"\n')
+    (csrc / "s.cuh").write_text("\n")
+    log = tmp_path / "log"
+    fake = tmp_path / "nvcc"       # writes its -o file, logs each build
+    fake.write_text('#!/bin/sh\necho built >> "%s"\nwhile [ $# -gt 0 ]; do '
+                    '[ "$1" = -o ] && echo so > "$2"; shift; done\n' % log)
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD", str(build))
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+
+    def builds(touch=None):
+        if touch is not None:
+            os.utime(csrc / touch, (2e9, 2e9))
+        out = _build.build("k")
+        os.utime(out, (1e9, 1e9))  # the library's time, before any touch
+        return len(log.read_text().splitlines())
+
+    for f in ("k.cu", "s.cuh"):
+        os.utime(csrc / f, (5e8, 5e8))
+    assert builds() == 1
+    assert builds() == 1           # newer than both: reused
+    assert builds("s.cuh") == 2    # a header changed: rebuilt
+    os.utime(csrc / "s.cuh", (5e8, 5e8))
+    assert builds() == 2
+    assert builds("k.cu") == 3
+    assert sorted(os.listdir(build)) == ["libk.so"]

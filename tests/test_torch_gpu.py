@@ -23,7 +23,10 @@ def _need_gpu():
 @pytest.mark.gpu
 def test_nms_kernel_bit_equal_on_card():
     """The sm_90a kernel == its plain version, bit for bit, at the main
-    path's shapes and a ragged one, with plateaus and thre1 ties."""
+    path's shapes and a ragged one, with plateaus and thre1 ties; then on
+    maps with peaks where its row bands meet (band_field), and on an input
+    that starts off a 16-byte boundary (the 1-pixel path at a width of
+    144)."""
     _need_gpu()
     g = torch.Generator(device="cuda").manual_seed(0)
     for shape in [(4, 25, 184, 144), (2, 25, 184, 328), (3, 5, 7, 130),
@@ -36,6 +39,19 @@ def test_nms_kernel_bit_equal_on_card():
         assert N.nms_mask_rows.launches == before + 1
         mp, cp = N.nms_mask_rows_plain(x, 0.5)
         assert torch.equal(m, mp) and torch.equal(c, cp)
+    for shape in [(192, 25, 184, 144), (16, 25, 184, 328), (3, 25, 37, 130),
+                  (2, 3, 40, 1001)]:
+        x = band_field(shape, g, 0.5, 32)
+        m, c = N.nms_mask_rows(x, 0.5)
+        mp, cp = N.nms_mask_rows_plain(x, 0.5)
+        assert torch.equal(m, mp) and torch.equal(c, cp)
+    x = band_field((3, 5, 184, 144), g, 0.5, 32)
+    off = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 != 0
+    m, c = N.nms_mask_rows(off, 0.5)
+    mp, cp = N.nms_mask_rows_plain(x, 0.5)
+    assert torch.equal(m, mp) and torch.equal(c, cp)
 
 
 @pytest.mark.gpu

@@ -14,6 +14,7 @@ from islx.ops import peaks as JPK
 from islx.ops import resize as JR
 from islx.ops import yuv as JY
 from islx.ops.pallas_peaks import nms_mask_rows as pallas_nms_mask_rows
+from islx_torch.ops import _bands
 from islx_torch.ops import blur as TB
 from islx_torch.ops import nms_mask as TN
 from islx_torch.ops import peaks as TPK
@@ -104,6 +105,52 @@ def test_nms_mask_rows_plain_vs_pallas(case):
     assert got_m.dtype == torch.uint8 and got_c.dtype == torch.int32
     np.testing.assert_array_equal(np.asarray(want_m), got_m.numpy())
     np.testing.assert_array_equal(np.asarray(want_c), got_c.numpy())
+
+
+def _band_maps(seed, b, c, h, w, thre):
+    """Seeded maps [B,C,H,W] with structure where the kernel's row bands
+    (``_bands.band_plan``) meet: in every band a peak on its first and its
+    last row, a first-row pixel that only the halo row above suppresses,
+    and a 2x3 plateau across each band boundary (all six pixels peak)."""
+    rng = np.random.RandomState(seed)
+    maps = (rng.rand(b, c, h, w) * (thre + 0.1)).astype(np.float32)
+    rows, bands, _ = _bands.band_plan(h, w)
+    for band in range(bands):
+        y0, y1 = band * rows, min((band + 1) * rows, h)
+        col = (13 * band + 3) % (w - 13)
+        maps[..., y0, col] = thre + 0.4
+        if y0 > 0:
+            maps[..., y0, col + 2] = thre + 0.35
+            maps[..., y0 - 1, col + 2] = thre + 0.45
+        maps[..., y1 - 1, col + 4] = thre + 0.4
+        if y1 < h:
+            maps[..., y1 - 1:y1 + 1, col + 6:col + 9] = thre + 0.3
+    return maps
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 184, 144), (3, 5, 37, 130),
+                                   (2, 3, 40, 1001)])
+def test_nms_mask_rows_on_band_boundaries(shape):
+    """Peaks, halo-suppressed pixels and plateaus where the CUDA kernel's
+    row bands meet: the wrapper's CPU path == the Pallas kernel
+    (interpret), mask and row counts bit-equal."""
+    thre = 0.5
+    maps = _band_maps(5, *shape, thre)
+    want_m, want_c = pallas_nms_mask_rows(jnp.asarray(maps),
+                                          jnp.float32(thre), interpret=True)
+    got_m, got_c = TN.nms_mask_rows(torch.from_numpy(maps), thre)
+    np.testing.assert_array_equal(np.asarray(want_m), got_m.numpy())
+    np.testing.assert_array_equal(np.asarray(want_c), got_c.numpy())
+    rows, bands, _ = _bands.band_plan(*shape[2:])
+    assert bands > 1
+    # every band's first and last row holds a peak; a pixel only the halo
+    # row above suppresses is no peak
+    first = got_m.numpy()[..., ::rows, :].any(-1)
+    last = got_m.numpy()[..., rows - 1::rows, :].any(-1)
+    assert first.all() and last.all()
+    assert not got_m[..., rows, (13 + 3) % (shape[3] - 13) + 2].any()
+    plateau = got_m[..., rows - 1:rows + 1, 3 + 6:3 + 9]
+    assert bool(plateau.all())
 
 
 def test_nms_mask_nan_is_no_peak():

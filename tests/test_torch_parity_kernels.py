@@ -67,7 +67,7 @@ def test_nms_first_k_border_contracts(rng):
 
 
 @pytest.mark.parametrize("h,w", [(7, 130), (37, 130), (1, 1), (720, 1280),
-                                 (184, 144), (184, 328)])
+                                 (184, 144), (184, 328), (40, 1001)])
 def test_nms_first_k_bands_cover_each_row_once(h, w):
     """The CUDA kernel's band plan: bands of ``rows`` rows cover rows
     0..H-1 exactly once, none is empty, and a block's staged band with its
