@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and the last line is never printed):
    as calls queued back to back (the device's time); NMS+first-K on sparse
    maps (whole planes read, peaks in the last rows), dense ones (early
    exit) and maps with peaks where its row bands meet, K = 32 and K = 1;
-   the plain PAF scoring on the card bit-equal to the CPU's;
+   the plain PAF scoring on the card bit-equal to the CPU's; the labelling
+   kernel on blob maps and on maps built to break a tiled labeller, timed
+   single and back to back;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
@@ -29,7 +31,9 @@ Phases (any failure exits non-zero and the last line is never printed):
    the launch counters must show the NMS+first-K, PAF-sampling and
    labelling kernels on it; the same path on a small frame must match the
    plain CPU path;
-7. a JSON line of the kernels' numbers, then the card line again, then
+7. the labelling kernel's device ms per launch (torch.profiler), after
+   the timed phases, so that no profiler runs before them;
+8. a JSON line of the kernels' numbers, then the card line again, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
     python3 chip_smoke.py --profile
@@ -42,7 +46,7 @@ achieved rate, as one JSON line.
 
     python3 chip_smoke.py --kernels
 
-runs phases 1-3 only and prints phase 3's numbers as one JSON line.
+runs phases 1-3 and 7 only and prints their numbers as one JSON line.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -393,6 +397,26 @@ def snake(h, w):
     return m
 
 
+def corner_map(h, w, diagonal, period=8):
+    """Pairs of short lines joined only through one diagonal step across
+    each point (Y, X) where rows Y-1, Y and columns X-1, X meet, Y and X
+    multiples of ``period`` (so the corner of every tile whose sides
+    divide it). ``diagonal`` "nw": (Y-1, X-1) and (Y, X), the NW link of
+    the lower-right pixel; "ne": (Y-1, X) and (Y, X-1), the NE link of the
+    lower-left pixel, whose component's smallest index lies to the
+    right."""
+    m = np.zeros((h, w), bool)
+    for y in range(period, h, period):
+        for x in range(period, w, period):
+            if diagonal == "nw":
+                m[y - 1, max(x - 4, 0):x] = True        # ends at (Y-1, X-1)
+                m[y:y + 4, x] = True                    # starts at (Y, X)
+            else:
+                m[max(y - 3, 0):y, x] = True            # ends at (Y-1, X)
+                m[y, max(x - 4, 0):x] = True            # ends at (Y, X-1)
+    return m
+
+
 def blob_maps(size: int, c: int = 21) -> torch.Tensor:
     """[size,size,c] bool on the card: a spiral, a snake and seeded smooth
     blobs thresholded as a hand heatmap is."""
@@ -406,34 +430,111 @@ def blob_maps(size: int, c: int = 21) -> torch.Tensor:
     return torch.cat([thin, blobs]).permute(1, 2, 0).contiguous()
 
 
-def check_cc_label(sizes) -> list:
+def tile_maps(rng, h, w, c, first=0) -> np.ndarray:
+    """[H,W,C] bool maps built to break a tiled labeller, channel i of kind
+    (first + i) mod 9: components joined only through a tile corner's NW
+    or NE diagonal (corner_map), a spiral and a snake that cross every
+    tile, all foreground, all background, a diagonal lattice (every pixel
+    of a colour joined through corners alone) and seeded random pixels at
+    two densities."""
+    lattice = np.zeros((h, w), bool)
+    lattice[::2, ::2] = True
+    lattice[1::2, 1::2] = True
+    kinds = [lambda: corner_map(h, w, "nw"), lambda: corner_map(h, w, "ne"),
+             lambda: spiral(h, w), lambda: snake(h, w),
+             lambda: np.ones((h, w), bool), lambda: np.zeros((h, w), bool),
+             lambda: lattice, lambda: rng.rand(h, w) > 0.55,
+             lambda: rng.rand(h, w) > 0.4]
+    return np.stack([kinds[(first + i) % len(kinds)]() for i in range(c)],
+                    -1)
+
+
+def launch_ms(fn, pattern: str, reps: int = 20) -> dict:
+    """Device ms a call of each kernel whose name matches ``pattern`` (its
+    first group names it), from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        found = re.search(pattern, e.key)
+        if found:
+            name = found.group(1)
+            out[name] = (out.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / reps)
+    return out
+
+
+CC_CASES = [(256, "blobs"), (368, "blobs"), (736, "blobs"), (256, "tiles"),
+            (368, "tiles"), (736, "tiles")]
+
+
+def cc_map(size: int, field: str) -> torch.Tensor:
+    """[size,size,21] bool on the card: "blobs" (blob_maps: a spiral, a
+    snake and blobs as a thresholded hand heatmap) or "tiles" (tile_maps:
+    joins only at a tile corner, full and empty channels, ...)."""
+    if field == "blobs":
+        return blob_maps(size)
+    return torch.from_numpy(tile_maps(np.random.RandomState(size), size,
+                                      size, 21)).cuda()
+
+
+def check_cc_label(cases) -> list:
+    """label_components == its plain version, bit for bit, one launch a
+    call, on cc_map's maps. Timed as single calls (``ms``, a call's host
+    time included) and as calls queued back to back (``stream_ms``)."""
     from islx_torch.ops import cc_label as CC
 
     rows = []
-    for size in sizes:
-        m = blob_maps(size)
+    for size, field in cases:
+        m = cc_map(size, field)
+        before = CC.label_components.launches
         got = CC.label_components(m)
         torch.cuda.synchronize()
         want = CC.label_components_plain(m)
-        if not torch.equal(got, want):
+        if not torch.equal(got, want) or (
+                CC.label_components.launches != before + 1):
             raise SystemExit(f"cc_label differs from its plain version at "
-                             f"{size}: {int((got != want).sum())} labels")
+                             f"{size} ({field}): {int((got != want).sum())} "
+                             f"labels, {CC.label_components.launches - before}"
+                             f" launches")
         h, w, c = m.shape
         bound_ms, by = bound(m.numel() * 5, m.numel() * 4)
-        row = {"shape": [h, w, c], "bit_equal": True, "max_abs_err": 0,
-               "foreground": int(m.sum()),
+        row = {"shape": [h, w, c], "field": field, "bit_equal": True,
+               "max_abs_err": 0, "foreground": int(m.sum()),
                "components": int((want == torch.arange(
                    h * w, device="cuda", dtype=torch.int32).reshape(
                        h, w, 1)).sum()),
                "ms": cuda_ms(lambda: CC.label_components(m)),
+               "stream_ms": stream_ms(lambda: CC.label_components(m)),
                "plain_ms": cuda_ms(lambda: CC.label_components_plain(m),
                                    reps=5, warmup=1),
                "bound_ms": bound_ms, "bound_by": by}
-        log(f"  cc_label {[h, w, c]}: bit-equal, {row['components']} "
-            f"components, kernel {row['ms']:.4f} ms, plain "
+        log(f"  cc_label {[h, w, c]} {field}: bit-equal, "
+            f"{row['components']} components, kernel {row['ms']:.4f} ms, "
+            f"back to back {row['stream_ms']:.4f}, plain "
             f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
         rows.append(row)
     return rows
+
+
+def cc_launch_split(rows) -> None:
+    """Adds each launch's device ms (torch.profiler) to check_cc_label's
+    rows. It runs after the timed phases, so that no profiler has traced
+    the card before them."""
+    from islx_torch.ops import cc_label as CC
+
+    for row in rows:
+        m = cc_map(row["shape"][0], row["field"])
+        row["launch_ms"] = launch_ms(lambda: CC.label_components(m),
+                                     r"\b(cc_\w+)")
+        split = ", ".join(f"{k} {v:.4f}" for k, v in row["launch_ms"].items())
+        log(f"  cc_label {row['shape']} {row['field']}: {split} ms")
 
 
 def seeded_i420(rng, b: int, hb: int, wb: int) -> np.ndarray:
@@ -550,7 +651,7 @@ def integer_planes(pipe, packed, b) -> dict:
 
 
 PORT_KERNELS = ("nms_mask_kernel", "band_kernel", "gather_kernel",
-                "paf_sample_kernel", "cc_init", "cc_merge", "cc_flatten")
+                "paf_sample_kernel", "cc_tile", "cc_border", "cc_final")
 STAGES = ("yuv420_to_bgr", "body_cpm", "body_peaks", "paf_limbs",
           "hand_boxes", "hand_crops", "hand_cpm", "hand_peaks", "pack")
 
@@ -901,8 +1002,9 @@ def main(argv=None) -> int:
                       help="instead of phases 3-6, profile the fused step "
                            "(device ms per stage, top kernels, busy share)")
     mode.add_argument("--kernels", action="store_true",
-                      help="run phases 1-3 only: build the kernels and hold "
-                           "each against its plain version, with times")
+                      help="run phases 1-3 and 7 only: build the kernels "
+                           "and hold each against its plain version, with "
+                           "times")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -967,9 +1069,14 @@ def main(argv=None) -> int:
                                    ((3, 5, 7, 130), 0.5, 0.0, "bands"),
                                    ((1, 2, 1, 1), 0.5, 0.0, "bands")], k=1)
     paf_rows = check_paf_sample()
-    cc_rows = check_cc_label([368, 736, 256])
+    # the Hand call's crop first (the row the kernels line reports), then
+    # the parity Hand's other net sizes; tiles: maps built to break a
+    # tiled labeller
+    cc_rows = check_cc_label(CC_CASES)
     torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
     if args.kernels:
+        log("[7] labelling kernel, device ms per launch")
+        cc_launch_split(cc_rows)
         return finish({"phase3": {"nms_mask_rows": nms_rows,
                                   "nms_first_k": nfk_rows,
                                   "paf_sample": paf_rows, "cc_label": cc_rows},
@@ -1004,6 +1111,9 @@ def main(argv=None) -> int:
     log("[6] reference-parity path, full width, f32")
     parity = parity_path()
     parity_small_check()
+
+    log("[7] labelling kernel, device ms per launch")
+    cc_launch_split(cc_rows)
 
     def entry(name, source, replaces, launches, rows, main=0):
         bench = rows[main]

@@ -9,7 +9,7 @@ import torch
 # The int8 W8A8 trunks (islx/models/quant.py) are the port's next slice.
 INT8_SLICE = ("int8 W8A8 trunks are not ported yet: they need the CUDA int8 "
               "conv + requantize kernel of the next slice of the port "
-              "(ROADMAP.md §2 item 2)")
+              "(ROADMAP.md §1, module 1)")
 
 
 def resolve_device(device=None) -> torch.device:

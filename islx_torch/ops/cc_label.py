@@ -3,25 +3,55 @@
 ``label_components`` is the port of the Pallas kernel
 ``islx/ops/pallas_cc.py::label_components_pallas`` (and of
 ``islx/ops/hand_peaks.py::_label_components``, which computes the same
-labels). On a CUDA tensor it launches the hand-written union-find kernel in
-``islx_torch/csrc/cc_label.cu``; on a CPU tensor it runs
-:func:`label_components_plain`, a plain PyTorch version of the same
-function. There is no fallback between the two: a CUDA tensor the kernel
-cannot take raises.
+labels). On a CUDA tensor it launches the hand-written tiled union-find
+kernel in ``islx_torch/csrc/cc_label.cu`` (tiles from :func:`tile_plan`); on
+a CPU tensor it runs :func:`label_components_plain`, a plain PyTorch
+version of the same function. There is no fallback between the two: a CUDA
+tensor the kernel cannot take raises.
 
 Contract: a component's label is the smallest row-major index y*W+x of its
 pixels; background gets H*W.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
 from islx_torch.ops import _build
+from islx_torch.ops._bands import MAX_SMEM
 
 # W, NW, N and NE: with their mirror images, the 8 neighbours
 _HALF_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
+# The kernel's tile: up to TILE_ROWS x TILE_W pixels of all C channels;
+# 256 blocks of 352 threads at the Hand call's [256,256,21], ~49 KB of
+# shared memory each. Smaller tiles were faster on blob maps up to 368 px
+# and slower on larger or more fragmented maps (PERF.md, the cc_label
+# findings). TILE_W is the kernel's kTw.
+TILE_ROWS = 16
+TILE_W = 16
+
+
+def tile_plan(h: int, w: int, c: int):
+    """-> (rows a tile, tiles down, tiles across, bytes a staged row, shared
+    bytes a block) for the kernel's tiles of [H,W,C] maps: TILE_ROWS rows,
+    halved until a block's shared memory holds its staged fg rows (each
+    padded to a 16-byte multiple with room for a 15-byte misalignment), its
+    forest of th*TILE_W*C int32 slots and its list of links between runs,
+    fewer than th*(TILE_W+1)*C."""
+    row_bytes = -(-(TILE_W * c + 15) // 16) * 16
+    th = TILE_ROWS
+    while True:
+        smem = (th * row_bytes + 4 * th * TILE_W * c
+                + 4 * th * (TILE_W + 1) * c)
+        if smem <= MAX_SMEM:
+            return th, -(-h // th), -(-w // TILE_W), row_bytes, smem
+        if th == 1:
+            raise ValueError(f"label_components: {c} channels do not fit a "
+                             f"block's shared memory")
+        th //= 2
 
 
 def label_components_plain(binary: torch.Tensor) -> torch.Tensor:
@@ -68,11 +98,12 @@ def label_components_plain(binary: torch.Tensor) -> torch.Tensor:
     return lab.reshape(c, h, w).permute(1, 2, 0).contiguous()
 
 
+@functools.cache
 def _kernel():
     lib = _build.load("cc_label")
     fn = lib.islx_cc_label
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,8 +112,9 @@ def label_components(binary: torch.Tensor) -> torch.Tensor:
     """binary [H,W,C] bool -> labels [H,W,C] int32 (see the module doc).
 
     CUDA tensors go through the sm_90a kernel on the current stream (no
-    synchronisation; ``label_components.launches`` counts the launches),
-    CPU tensors through :func:`label_components_plain`."""
+    synchronisation; ``label_components.launches`` counts the calls, each
+    one ctypes call of up to three launches), CPU tensors through
+    :func:`label_components_plain`."""
     if binary.device.type == "cpu":
         return label_components_plain(binary)
     if binary.device.type != "cuda":
@@ -98,12 +130,17 @@ def label_components(binary: torch.Tensor) -> torch.Tensor:
     h, w, c = binary.shape
     if h * w >= 2 ** 31 - 1 or h * w * c >= 2 ** 62:
         raise ValueError(f"label_components: map {h}x{w} too large")
-    labels = torch.empty((h, w, c), dtype=torch.int32, device=binary.device)
+    dev = binary.device
+    labels = torch.empty((h, w, c), dtype=torch.int32, device=dev)
     if labels.numel() == 0:
         return labels
-    with torch.cuda.device(binary.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(binary.data_ptr(), labels.data_ptr(), h, w, c,
+    plan = tile_plan(h, w, c)
+    # the raw handle of the current stream; the device guard only where
+    # needed (a Stream object costs host time of the order of the kernel)
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = _kernel()(binary.data_ptr(), labels.data_ptr(), h, w, c, *plan,
                         stream)
     if err != 0:
         raise RuntimeError(f"label_components: kernel launch failed "

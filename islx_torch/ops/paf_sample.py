@@ -27,11 +27,14 @@ def _limb_table(limb_seq, map_idx, device) -> torch.Tensor:
     return torch.from_numpy(tab.astype(np.int32)).to(device)
 
 
+@functools.lru_cache(maxsize=32)
 def _samples_t(mid_num: int, device) -> torch.Tensor:
     """The f32 sample positions along a limb, the words of
     ``jnp.linspace(0, 1, mid_num)`` as XLA computes them: ``i * f32(1/div)``
     and an exact 1.0 at the end (``torch.linspace`` differs in the last bit
-    for some counts, e.g. 7)."""
+    for some counts, e.g. 7). Made once a device: a copy from host memory
+    waits for the work queued before it, so one a call would stall the
+    fused step once a limb. Callers must not write to it."""
     t = np.arange(mid_num, dtype=np.float32)
     if mid_num > 1:
         t = t * np.float32(1.0 / (mid_num - 1))

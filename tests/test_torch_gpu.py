@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_field, band_cases_hold, snake, spiral
+from chip_smoke import band_field, band_cases_hold, tile_maps
 from islx_torch.ops import cc_label as CC
 from islx_torch.ops import nms_first_k as NF
 from islx_torch.ops import nms_mask as N
@@ -69,13 +69,9 @@ def test_nms_kernel_refuses_what_it_cannot_take():
 
 def cc_maps(rng, h, w):
     """[H,W,C] test maps: spiral, snake, full, empty, diagonal-only
-    contacts and seeded random blobs."""
-    diag = np.zeros((h, w), bool)
-    diag[::2, ::2] = True
-    diag[1::2, 1::2] = True
-    return np.stack([spiral(h, w), snake(h, w), np.ones((h, w), bool),
-                     np.zeros((h, w), bool), diag, rng.rand(h, w) > 0.55,
-                     rng.rand(h, w) > 0.4], -1)
+    contacts and seeded random blobs (tile_maps without its corner
+    maps)."""
+    return tile_maps(rng, h, w, 7, first=2)
 
 
 @pytest.mark.gpu
@@ -156,17 +152,34 @@ def test_paf_sample_bit_equal_on_card():
 
 @pytest.mark.gpu
 def test_cc_label_bit_equal_on_card():
-    """The union-find labelling kernel == its plain version, bit for bit,
-    on the spiral, snake, full and blob maps."""
+    """The tiled union-find kernel == its plain version, bit for bit, one
+    launch a call: on the spiral, snake, full and blob maps; on maps built
+    to break a tiled labeller (tile_maps: components joined only through a
+    tile corner's NW or NE diagonal, a spiral and a snake across every
+    tile, full and empty channels) at the Hand call's crop sizes and at
+    ragged shapes with C = 1, 3 and 22, each kind of map at C = 1; and on
+    an input that starts off a 16-byte boundary."""
     _need_gpu()
     rng = np.random.RandomState(3)
-    for h, w in [(368, 368), (97, 61), (1, 40)]:
-        maps = torch.from_numpy(cc_maps(rng, h, w)).cuda()
+    maps = [cc_maps(rng, h, w) for h, w in [(368, 368), (97, 61), (1, 40)]]
+    maps += [tile_maps(rng, h, w, c) for h, w, c in [
+        (256, 256, 21), (368, 368, 21), (736, 736, 21), (97, 61, 22),
+        (97, 61, 3), (1, 40, 3), (40, 1, 22), (33, 130, 22)]]
+    maps += [tile_maps(rng, 97, 61, 1, first) for first in range(9)]
+    for m in maps:
+        m = torch.from_numpy(m).cuda()
         before = CC.label_components.launches
-        got = CC.label_components(maps)
+        got = CC.label_components(m)
         torch.cuda.synchronize()
         assert CC.label_components.launches == before + 1
-        assert torch.equal(got, CC.label_components_plain(maps))
+        assert torch.equal(got, CC.label_components_plain(m)), m.shape
+    m = torch.from_numpy(tile_maps(rng, 97, 61, 22)).cuda()
+    off = torch.empty(m.numel() + 1, dtype=torch.bool,
+                      device="cuda")[1:].view(m.shape)
+    off.copy_(m)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(CC.label_components(off),
+                       CC.label_components_plain(m))
 
 
 @pytest.mark.gpu

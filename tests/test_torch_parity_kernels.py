@@ -19,6 +19,7 @@ from islx_torch.ops import cc_label as TCC
 from islx_torch.ops import nms_first_k as TNF
 from islx_torch.ops import paf as TP
 from islx_torch.ops import paf_sample as TPS
+from chip_smoke import tile_maps
 from test_torch_gpu import cc_maps
 
 
@@ -164,6 +165,68 @@ def test_sample_positions_are_linspace_words(mid_num):
         TPS._samples_t(mid_num, "cpu").numpy())
 
 
+def _peaks8(rng, b, k, h, w):
+    """Seeded peak tables [B,25,K,2] on an h x w image, about 1 in 5
+    invalid."""
+    xy = np.stack([rng.randint(0, w, (b, 25, k)),
+                   rng.randint(0, h, (b, 25, k))], -1).astype(np.int32)
+    return xy, rng.rand(b, 25, k) > 0.2
+
+
+@pytest.mark.parametrize("mid_num", [7, 10, 11])
+def test_pair_samples8_cells_match_islx(rng, mid_num):
+    """The /8 cell of every line sample == islx's ``_pair_samples8``: the
+    sample positions are ``jnp.linspace``'s words and the sample point is
+    one fused multiply-add, as XLA computes it (``torch.linspace`` and a
+    separate multiply and add put a few hundred samples a run in the next
+    cell at 7 and 11)."""
+    b, h8, w8, k = 4, 23, 18, 16
+    xy, valid = _peaks8(rng, b, k, 8 * h8, 8 * w8)
+    for limb in JP.LIMB_SEQ_BODY25:
+        want = jax.jit(jax.vmap(lambda x, v: JP._pair_samples8(
+            x, v, jnp.asarray(limb), 8, h8, w8, mid_num)))(
+            jnp.asarray(xy), jnp.asarray(valid))
+        got = TP._pair_samples8(torch.from_numpy(xy), torch.from_numpy(valid),
+                                tuple(limb.tolist()), 8, h8, w8, mid_num)
+        np.testing.assert_array_equal(np.asarray(want[3]), got[3].numpy())
+        np.testing.assert_array_equal(np.asarray(want[2]), got[2].numpy())
+
+
+@pytest.mark.parametrize("count_dtype", ["int32", "int8"])
+@pytest.mark.parametrize("mid_num,orig_h", [(10, 48.0), (7, 48.0),
+                                            (10, 1000.0)])
+def test_score_limbs_cell_score_words_on_one_cell(rng, count_dtype, mid_num,
+                                                  orig_h):
+    """On a paf8 that is zero but for one cell, each pair's sum over cells
+    has at most one nonzero term, so summation order cannot matter and the
+    score words must equal islx's exactly, at int32 and int8 counts (the
+    port counts in int32: the same integers). The mean is a multiply by
+    the f32 reciprocal, fused with the prior's add, as XLA computes it."""
+    b, h8, w8, k = 3, 6, 8, 8
+    paf8 = np.zeros((b, h8, w8, 52), np.float32)
+    xy = np.zeros((b, 25, k, 2), np.int32)
+    for i in range(b):
+        cy, cx = rng.randint(1, h8 - 1), rng.randint(1, w8 - 1)
+        paf8[i, cy, cx] = (rng.rand(52) * 4 - 1).astype(np.float32)
+        # peaks around the cell, so that some pairs sample it nine times
+        # in ten and pass
+        xy[i, ..., 0] = rng.randint(8 * cx - 6, 8 * cx + 14, (25, k))
+        xy[i, ..., 1] = rng.randint(8 * cy - 6, 8 * cy + 14, (25, k))
+    valid = rng.rand(b, 25, k) > 0.2
+    want = jax.vmap(lambda p, x, v: JP.score_limbs_cell(
+        p, x, v, jnp.asarray(JP.LIMB_SEQ_BODY25),
+        jnp.asarray(JP.MAP_IDX_BODY25), 8, 0.05, mid_num,
+        orig_h=jnp.float32(orig_h), count_dtype=getattr(jnp, count_dtype)))(
+        jnp.asarray(paf8), jnp.asarray(xy), jnp.asarray(valid))
+    got = TP.score_limbs_cell(torch.from_numpy(paf8), torch.from_numpy(xy),
+                              torch.from_numpy(valid), TP.LIMB_SEQ_BODY25,
+                              TP.MAP_IDX_BODY25, 8, 0.05, mid_num,
+                              orig_h=orig_h)
+    np.testing.assert_array_equal(np.asarray(want.score), got.score.numpy())
+    np.testing.assert_array_equal(np.asarray(want.ok), got.ok.numpy())
+    assert got.ok.sum() > 0 and (got.score.numpy() != 0).sum() > 1000
+
+
 @pytest.mark.parametrize("h,w", [(40, 36), (17, 1), (1, 23)])
 def test_label_components_matches_pallas_and_xla(rng, h, w):
     maps = cc_maps(rng, h, w)
@@ -200,3 +263,121 @@ def test_label_components_plain_at_crop_size(rng):
     maps = cc_maps(rng, 368, 368)
     got = TCC.label_components(torch.from_numpy(maps)).numpy()
     np.testing.assert_array_equal(_min_index_labels(maps), got)
+
+
+@pytest.mark.parametrize("h,w,c,first", [(97, 61, 22, 0), (40, 36, 9, 0),
+                                         (1, 40, 3, 0), (40, 1, 3, 4),
+                                         (33, 17, 3, 6), (24, 24, 1, 0),
+                                         (24, 24, 1, 1)])
+def test_label_components_plain_on_tile_maps(rng, h, w, c, first):
+    """The plain version on maps built to break a tiled labeller (corner
+    joins, a spiral and a snake across every tile, ragged H and W, full
+    and empty channels) == scipy's labels and the Pallas kernel's."""
+    maps = tile_maps(rng, h, w, c, first)
+    got = TCC.label_components(torch.from_numpy(maps)).numpy()
+    np.testing.assert_array_equal(_min_index_labels(maps), got)
+    pallas = np.asarray(label_components_pallas(jnp.asarray(maps),
+                                                interpret=True))
+    np.testing.assert_array_equal(pallas, got)
+
+
+def test_corner_maps_join_only_through_the_corner():
+    """corner_map's two lines at each tile corner form one component with
+    the diagonal step and two without it."""
+    from chip_smoke import corner_map
+
+    for diagonal, cut in (("nw", (8, 8)), ("ne", (8, 7))):
+        m = corner_map(24, 24, diagonal)
+        lab = _min_index_labels(m[..., None])[..., 0]
+        assert len(np.unique(lab[m])) == 4          # one a corner
+        m[cut] = False
+        lab = _min_index_labels(m[..., None])[..., 0]
+        assert len(np.unique(lab[m])) == 5
+
+
+@pytest.mark.parametrize("h,w,c", [(256, 256, 21), (368, 368, 21),
+                                   (736, 736, 21), (97, 61, 22), (1, 40, 1),
+                                   (40, 1, 3), (10, 10, 300), (3, 3, 1300)])
+def test_cc_tile_plan_covers_each_pixel_once(h, w, c):
+    """The kernel's tiles cover every pixel once, and a block's staged rows
+    (16-byte multiples, room for a 15-byte head), forest and links fit its
+    shared memory, with fewer rows a tile only where C needs it."""
+    th, tiles_y, tiles_x, row_bytes, smem = TCC.tile_plan(h, w, c)
+    tw = TCC.TILE_W
+    seen = np.zeros((h, w), np.int64)
+    for ty in range(tiles_y):
+        for tx in range(tiles_x):
+            assert ty * th < h and tx * tw < w
+            seen[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] += 1
+    np.testing.assert_array_equal(seen, 1)
+    assert row_bytes % 16 == 0 and row_bytes >= tw * c + 15
+    forest, links = th * tw * c, th * (tw + 1) * c
+    assert smem == th * row_bytes + 4 * (forest + links) <= TNF.MAX_SMEM
+    assert th == TCC.TILE_ROWS or 2 * smem > TNF.MAX_SMEM
+    assert forest < 2 ** 16             # a link packs two slots in 32 bits
+
+
+def test_cc_tile_plan_refuses_too_many_channels():
+    with pytest.raises(ValueError):
+        TCC.tile_plan(4, 4, 2000)
+
+
+def _tiled_model(maps, th, tw):
+    """The kernel's three passes in numpy, on tiles of th x tw: each tile
+    component labelled by its smallest pixel; the border pass's unions,
+    larger root under smaller (a tile's top row with N where N is
+    foreground, else with NW and NE; its left column with W where W is
+    foreground, else with NW and SW); then each pixel's root."""
+    h, w, c = maps.shape
+    out = np.full((h, w, c), h * w, np.int64)
+    for ch in range(c):
+        fg = maps[:, :, ch]
+        parent = np.full(h * w, h * w, np.int64)
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                sub = fg[y0:y0 + th, x0:x0 + tw]
+                loc = _min_index_labels(sub[..., None])[..., 0]
+                ly, lx = np.divmod(loc, sub.shape[1])
+                glob = (y0 + ly) * w + x0 + lx
+                ys, xs = np.nonzero(sub)
+                parent[(y0 + ys) * w + x0 + xs] = glob[ys, xs]
+
+        def root(p):
+            while parent[p] != p:
+                p = parent[p]
+            return p
+
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                border = []
+                if y0 > 0:     # near: N; else NW and NE
+                    border += [(y0, x, (-1, 0), ((-1, -1), (-1, 1)))
+                               for x in range(x0, min(x0 + tw, w))]
+                if x0 > 0:     # near: W; else NW and SW
+                    border += [(y, x0, (0, -1), ((-1, -1), (1, -1)))
+                               for y in range(y0, min(y0 + th, h))]
+                for y, x, near, others in border:
+                    if not fg[y, x]:
+                        continue
+                    ny, nx = y + near[0], x + near[1]
+                    for dy, dx in ([near] if fg[ny, nx] else others):
+                        yy, xx = y + dy, x + dx
+                        if 0 <= yy < h and 0 <= xx < w and fg[yy, xx]:
+                            a, b = root(y * w + x), root(yy * w + xx)
+                            parent[max(a, b)] = min(a, b)
+        lab = np.full(h * w, h * w, np.int64)
+        on = np.nonzero(fg.reshape(-1))[0]
+        lab[on] = [root(p) for p in on]
+        out[:, :, ch] = lab.reshape(h, w)
+    return out
+
+
+@pytest.mark.parametrize("th,tw", [(16, 16), (4, 4), (3, 8), (8, 2)])
+def test_tiled_union_find_model_matches_scipy(rng, th, tw):
+    """The kernel's algorithm, modelled in numpy, gives the min-index labels
+    on the tile maps at ragged shapes: the border pass's links reach every
+    8-neighbour pair that crosses a tile edge, corners included."""
+    for h, w in [(97, 61), (1, 40), (40, 1)]:
+        maps = tile_maps(rng, h, w, 9)
+        np.testing.assert_array_equal(_tiled_model(maps, th, tw),
+                                      _min_index_labels(maps))
