@@ -21,10 +21,11 @@
 //      root is the smallest pixel of its tile component. Each pixel's tile
 //      root is written as a global pixel index straight into the label
 //      map, H*W for background. No init pass.
-//   2. cc_border, a thread a slot of a tile's top row or left column: the
-//      8-neighbour links that cross a tile edge, corners included (the top
-//      row's N, or NW and NE where N is background; the left column's W,
-//      or NW and SW). The forest is the label map itself (a pixel's parent
+//   2. cc_border, a thread a run of four slots of a tile's top row or left
+//      column: the 8-neighbour links that cross a tile edge, corners
+//      included (the top row's N, or NW and NE where N is background; the
+//      left column's W, or NW and SW), once for each pair of labels. The
+//      forest is the label map itself (a pixel's parent
 //      is label[parent*C + c]); links go from the larger root to the
 //      smaller by atomicCAS, and a find halves the path it walks. A chain
 //      is as long as the tile components it joins, not as its pixel count.
@@ -279,37 +280,59 @@ cc_tile(const uint8_t* __restrict__ fg, int32_t* __restrict__ lab, int h,
   }
 }
 
-// Grid (tiles, ceil(items / kThreads)): item j of a tile is slot (lx, c) of
-// its top row for j < kTw*cs, else slot (ly, c) of its left column. The top
-// row links to N where it is foreground (its W and E links, inside a tile
-// or crossing a column edge, join NW and NE), else to NW and NE; the left
+constexpr int kSeg = 4;   // border pixels a thread
+// A thread a (tile, run of kSeg pixels of its top row or left column,
+// channel), neighbouring lanes on neighbouring channels. The top row links
+// to N where it is foreground (its W and E links, inside a tile or
+// crossing a column edge, join NW and NE), else to NW and NE; the left
 // column to W where it is foreground (its N and S links join NW and SW),
-// else to NW and SW.
+// else to NW and SW. A link unites the labels of its two pixels (ancestors
+// of both); a thread skips a link whose pair of labels is its last one's.
 __global__ void __launch_bounds__(kThreads)
 cc_border(const uint8_t* __restrict__ fg, int32_t* lab, int h, int w, int cs,
-          int th, int tiles_x) {
-  const Tile t = tile_of(blockIdx.x, tiles_x, th, kTw, h, w);
-  const int j = blockIdx.y * kThreads + threadIdx.x;
-  const bool is_top = j < kTw * cs;
-  const int k = (is_top ? j : j - kTw * cs) / cs;
-  const int c = (is_top ? j : j - kTw * cs) - k * cs;
-  if (is_top ? (t.y0 == 0 || k >= t.cols)
-             : (t.x0 == 0 || k >= t.rows || j >= (kTw + th) * cs))
-    return;
-  const int y = is_top ? t.y0 : t.y0 + k;
-  const int x = is_top ? t.x0 + k : t.x0;
-  const int32_t p = y * w + x;
-  const int64_t at = static_cast<int64_t>(p) * cs + c;
-  if (!fg[at]) return;
+          int th, int tiles_x, int64_t items) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= items) return;
+  const int64_t rest = i / cs;
+  const int c = static_cast<int>(i - rest * cs);
+  const int nseg = (kTw + th + kSeg - 1) / kSeg;   // top segments, then left
+  const int seg = static_cast<int>(rest % nseg);
+  const Tile t = tile_of(static_cast<int>(rest / nseg), tiles_x, th, kTw, h, w);
+  const int topseg = kTw / kSeg;
+  const bool is_top = seg < topseg;
+  const int k0 = (is_top ? seg : seg - topseg) * kSeg;
+  const int n = is_top ? t.cols : t.rows;
+  if (is_top ? t.y0 == 0 : t.x0 == 0) return;
   const int64_t up = static_cast<int64_t>(w) * cs;
-  if (fg[is_top ? at - up : at - cs]) {
-    unite(lab, p, is_top ? p - w : p - 1, c, cs);
-    return;
-  }
-  if (x > 0 && y > 0 && fg[at - up - cs]) unite(lab, p, p - w - 1, c, cs);
-  if (is_top ? x + 1 < w : y + 1 < h) {
-    if (fg[is_top ? at - up + cs : at + up - cs])
-      unite(lab, p, is_top ? p - w + 1 : p + w - 1, c, cs);
+  int32_t last_a = -1, last_b = -1;
+#pragma unroll
+  for (int d = 0; d < kSeg; ++d) {
+    const int k = k0 + d;
+    if (k >= n) break;
+    const int y = is_top ? t.y0 : t.y0 + k;
+    const int x = is_top ? t.x0 + k : t.x0;
+    const int32_t p = y * w + x;
+    const int64_t at = static_cast<int64_t>(p) * cs + c;
+    if (!fg[at]) continue;
+    int32_t q[2] = {-1, -1};
+    if (fg[is_top ? at - up : at - cs]) {
+      q[0] = is_top ? p - w : p - 1;
+    } else {
+      if (x > 0 && y > 0 && fg[at - up - cs]) q[0] = p - w - 1;
+      if ((is_top ? x + 1 < w : y + 1 < h) &&
+          fg[is_top ? at - up + cs : at + up - cs])
+        q[1] = is_top ? p - w + 1 : p + w - 1;
+    }
+    for (int l = 0; l < 2; ++l) {
+      if (q[l] < 0) continue;
+      const int32_t a = label_at(lab, p, c, cs);
+      const int32_t b = label_at(lab, q[l], c, cs);
+      if (a != last_a || b != last_b) {
+        unite(lab, a, b, c, cs);
+        last_a = a;
+        last_b = b;
+      }
+    }
   }
 }
 
@@ -374,8 +397,10 @@ extern "C" int islx_cc_label(const uint8_t* fg, int32_t* lab, int h, int w,
                                                    tiles_x, row_bytes);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || tiles == 1) return err;
-  const dim3 edges(tiles, ((kTw + th) * c + kThreads - 1) / kThreads);
-  cc_border<<<edges, kThreads, 0, s>>>(fg, lab, h, w, c, th, tiles_x);
+  const int64_t edges = static_cast<int64_t>(tiles) *
+                        ((kTw + th + kSeg - 1) / kSeg) * c;
+  cc_border<<<static_cast<unsigned int>((edges + kThreads - 1) / kThreads),
+              kThreads, 0, s>>>(fg, lab, h, w, c, th, tiles_x, edges);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int64_t runs = static_cast<int64_t>(h) * tiles_x * c;

@@ -9,6 +9,7 @@ Nothing is built on import, so the package imports on machines without
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -17,6 +18,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -74,3 +77,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
         return lib
+
+
+def launch(what: str, fn, dev: torch.device, *args) -> None:
+    """Calls a kernel's C entry ``fn(*args, stream)`` on the raw handle of
+    ``dev``'s current stream (a ``torch.cuda.Stream`` object costs host
+    time of the order of a kernel), with a device guard only where ``dev``
+    is not the current device. Raises if it returns a CUDA error."""
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed (cudaError {err})")

@@ -14,7 +14,6 @@ pixels; background gets H*W.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -134,17 +133,8 @@ def label_components(binary: torch.Tensor) -> torch.Tensor:
     labels = torch.empty((h, w, c), dtype=torch.int32, device=dev)
     if labels.numel() == 0:
         return labels
-    plan = tile_plan(h, w, c)
-    # the raw handle of the current stream; the device guard only where
-    # needed (a Stream object costs host time of the order of the kernel)
-    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        err = _kernel()(binary.data_ptr(), labels.data_ptr(), h, w, c, *plan,
-                        stream)
-    if err != 0:
-        raise RuntimeError(f"label_components: kernel launch failed "
-                           f"(cudaError {err})")
+    _build.launch("label_components", _kernel(), dev, binary.data_ptr(),
+                  labels.data_ptr(), h, w, c, *tile_plan(h, w, c))
     label_components.launches += 1
     return labels
 

@@ -13,7 +13,6 @@ parity path's ``find_peaks``). The two agree only for ``thre1 > 0``.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -100,19 +99,10 @@ def nms_first_k(blurred: torch.Tensor, thre1, k: int, border: float = 0.0
     buf = torch.empty(planes * (k + bands * (k + 1) + 1), dtype=torch.int32,
                       device=dev)
     idx = buf[:planes * k].view(bsz, c, k)
-    # the raw handle of the current stream: torch.cuda.current_stream()
-    # builds a Stream object, which costs more host time than the kernel
-    # takes on dense maps; the device guard only where it is needed
-    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        err = _kernel()(blurred.data_ptr(), idx.data_ptr(),
-                        buf.data_ptr() + 4 * planes * k, _thre_f32(thre1),
-                        float(border), planes, h, w, rows, bands,
-                        bands_per_block(planes, bands), k, smem, stream)
-    if err != 0:
-        raise RuntimeError(f"nms_first_k: kernel launch failed "
-                           f"(cudaError {err})")
+    _build.launch("nms_first_k", _kernel(), dev, blurred.data_ptr(),
+                  idx.data_ptr(), buf.data_ptr() + 4 * planes * k,
+                  _thre_f32(thre1), float(border), planes, h, w, rows, bands,
+                  bands_per_block(planes, bands), k, smem)
     nms_first_k.launches += 1
     return idx
 

@@ -9,7 +9,6 @@ cannot take raises.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -101,17 +100,9 @@ def nms_mask_rows(blurred: torch.Tensor, thre1
     if planes * bands >= 2 ** 31:
         raise ValueError(f"nms_mask_rows: {planes} planes of {bands} bands "
                          f"are too many")
-    # the raw handle of the current stream (a Stream object costs host
-    # time of the order of the kernel); the device guard only where needed
-    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-          else contextlib.nullcontext()):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        err = _kernel()(blurred.data_ptr(), buf.data_ptr(),
-                        buf.data_ptr() + cnt_at, _thre_f32(thre1), planes, h,
-                        w, rows, bands, smem, stream)
-    if err != 0:
-        raise RuntimeError(f"nms_mask_rows: kernel launch failed "
-                           f"(cudaError {err})")
+    _build.launch("nms_mask_rows", _kernel(), dev, blurred.data_ptr(),
+                  buf.data_ptr(), buf.data_ptr() + cnt_at, _thre_f32(thre1),
+                  planes, h, w, rows, bands, smem)
     nms_mask_rows.launches += 1
     return mask, row_cnt
 
