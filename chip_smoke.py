@@ -14,9 +14,14 @@ Phases (any failure exits non-zero and the last line is never printed):
    as calls queued back to back (the device's time); NMS+first-K on sparse
    maps (whole planes read, peaks in the last rows), dense ones (early
    exit) and maps with peaks where its row bands meet, K = 32 and K = 1;
-   the plain PAF scoring on the card bit-equal to the CPU's; the labelling
-   kernel on blob maps and on maps built to break a tiled labeller, timed
-   single and back to back;
+   the PAF scoring kernel at the parity Body's shape, timed single and back
+   to back beside an empty kernel's back-to-back time, and bit-equal at
+   mid 1, 7 and 11, with the COCO table, with channels other than
+   (cx, cx + 1) pairs, off an 8-byte boundary, and with invalid peaks
+   outside the map; the bound counts the distinct sectors read; the plain
+   PAF scoring on the card bit-equal to the CPU's; the labelling kernel on
+   blob maps and on maps built to break a tiled labeller, timed single and
+   back to back;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
@@ -31,8 +36,10 @@ Phases (any failure exits non-zero and the last line is never printed):
    the launch counters must show the NMS+first-K, PAF-sampling and
    labelling kernels on it; the same path on a small frame must match the
    plain CPU path;
-7. the labelling kernel's device ms per launch (torch.profiler), after
-   the timed phases, so that no profiler runs before them;
+7. device ms per launch (torch.profiler), after the timed phases, so
+   that no profiler runs before them: the labelling kernel's launches, and
+   the PAF kernel at phase 3's shape (inputs warm in L2, and L2 flushed
+   before each launch) and inside phase 6's Body call;
 8. a JSON line of the kernels' numbers, then the card line again, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -320,27 +327,126 @@ def check_nms_first_k(cases, k: int = 32) -> list:
     return rows
 
 
-def check_paf_sample(h=720, w=1280, k=32) -> list:
-    """paf_sample at the parity Body's shape: a seeded PAF [720,1280,52]
-    and peaks from find_peaks on a seeded heatmap; ok bit-equal, score
-    bit-equal to the plain version, which rounds at the same points."""
-    from islx_torch.ops import paf_sample as PS
-    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
+PAF_SHAPE = (720, 1280, 52)
+
+
+def paf_inputs(gen, h=720, w=1280, p=52, k=32):
+    """A seeded PAF [h,w,p] on the card and peaks from find_peaks on a
+    seeded heatmap (the parity Body's tables at its shape)."""
     from islx_torch.ops.peaks import find_peaks
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    paf = (torch.rand((h, w, 52), device="cuda", generator=gen) - 0.4)
+    paf = (torch.rand((h, w, p), device="cuda", generator=gen) - 0.4)
     heat = smooth_field((1, 25, h, w), gen, 0.6)[0].permute(1, 2, 0)
     pk = find_peaks(heat.contiguous(), 0.6, k)
-    args = (paf, pk.xy, pk.valid, LIMB_SEQ_BODY25, MAP_IDX_BODY25, 0.05, 10,
-            float(h))
+    return paf, pk
+
+
+def l2_flush() -> torch.Tensor:
+    """A buffer twice the card's 50 MB L2: zeroing it between two launches
+    evicts what the first left there."""
+    return torch.empty(25 * 2 ** 22, device="cuda")
+
+
+def paf_cases(gen, paf, pk) -> list:
+    """(name, args) of the PAF kernel's other cases, each at the phase-3
+    shape: mid 1, 7 and 11; the COCO limb table; channel tables other than
+    (cx, cx + 1) pairs with cx even (odd first channels, the y channel
+    before the x channel, channels apart); a map whose start is off an
+    8-byte boundary; and invalid peaks whose coordinates lie outside the
+    map."""
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.ops.paf import (LIMB_SEQ_BODY25, LIMB_SEQ_COCO,
+                                    MAP_IDX_BODY25, MAP_IDX_COCO)
+
+    h, w, p = paf.shape
+    body = PS.LimbTable(LIMB_SEQ_BODY25, MAP_IDX_BODY25)
+    odd = PS.LimbTable(LIMB_SEQ_BODY25, (MAP_IDX_BODY25 + 1) % p)
+    off = torch.empty(paf.numel() + 1, device="cuda")[1:].view(paf.shape)
+    off.copy_(paf)
+    xy, valid = pk.xy.clone(), pk.valid.clone()
+    far = torch.tensor([[-7, 5000], [w + 3, -1], [2 ** 30, -2 ** 30],
+                        [-2 ** 31, 2 ** 31 - 1], [w, h], [5, 2 ** 24 + 1]],
+                       dtype=torch.int32, device="cuda")
+    bad = ~valid
+    bad[::2, 1] = True                     # and a valid slot's place
+    valid &= ~bad
+    n = int(bad.sum())
+    xy[bad] = far[torch.arange(n, device="cuda") % len(far)]
+    return [
+        ("mid 1", (paf, pk.xy, pk.valid, body, 0.05, 1, float(h))),
+        ("mid 7", (paf, pk.xy, pk.valid, body, -0.1, 7, float(h))),
+        ("mid 11", (paf, pk.xy, pk.valid, body, 0.05, 11, float(h))),
+        ("coco", (paf, pk.xy, pk.valid,
+                  PS.LimbTable(LIMB_SEQ_COCO, MAP_IDX_COCO), 0.05, 10,
+                  float(h))),
+        ("odd channels", (paf, pk.xy, pk.valid, odd, 0.05, 10, float(h))),
+        ("y before x", (paf, pk.xy, pk.valid, PS.LimbTable(
+            LIMB_SEQ_BODY25, MAP_IDX_BODY25[:, ::-1].copy()), 0.05, 10,
+                        float(h))),
+        ("channels apart", (paf, pk.xy, pk.valid, PS.LimbTable(
+            LIMB_SEQ_BODY25, np.stack([MAP_IDX_BODY25[:, 0],
+                                       (MAP_IDX_BODY25[:, 1] + 2) % p], 1)),
+                            0.05, 10, float(h))),
+        ("map off 8 bytes", (off, pk.xy, pk.valid, body, 0.05, 10,
+                             float(h))),
+        ("far invalid peaks", (paf, xy, valid, body, 0.05, 10, float(h))),
+        ("far invalid peaks, mid 11", (paf, xy, valid, body, 0.05, 11,
+                                       float(h)))]
+
+
+def paf_sectors(terms, limbs, paf) -> int:
+    """The distinct 32 B sectors of ``paf`` [H,W,P] f32 that the samples
+    of paf_sample_terms' ``terms`` read: channels cx and cy of each
+    sample's pixel, rounded and clipped as the kernel does."""
+    h, w, p = paf.shape
+    xi = torch.clamp(torch.round(terms["px"]).long(), 0, w - 1)
+    yi = torch.clamp(torch.round(terms["py"]).long(), 0, h - 1)
+    word = (yi * w + xi) * p                              # [L,K,K,mid]
+    rows = limbs.rows.to(paf.device).long()
+    chans = [rows[:, c, None, None, None] for c in (2, 3)]
+    sector = torch.cat([((word + ch) * 4 // 32).reshape(-1) for ch in chans])
+    return int(torch.unique(sector).numel())
+
+
+def paf_bit_equal(name, args) -> float:
+    """paf_sample == paf_sample_plain on ``args``, score words and ok bits,
+    with one launch; -> the max abs error (0.0)."""
+    from islx_torch.ops import paf_sample as PS
+
+    before = PS.paf_sample.launches
     score, ok = PS.paf_sample(*args)
     torch.cuda.synchronize()
     pscore, pok = PS.paf_sample_plain(*args)
     err = float((score - pscore).abs().max())
-    if not torch.equal(ok, pok) or err > 0.0:
-        raise SystemExit(f"paf_sample differs from its plain version: ok "
-                         f"equal {torch.equal(ok, pok)}, score err {err}")
+    same = torch.equal(score.view(torch.int32), pscore.view(torch.int32))
+    if not (same and torch.equal(ok, pok)) or (
+            PS.paf_sample.launches != before + 1):
+        raise SystemExit(f"paf_sample differs from its plain version "
+                         f"({name}): ok equal {torch.equal(ok, pok)}, "
+                         f"{int((score != pscore).sum())} score words apart "
+                         f"(max abs err {err}), "
+                         f"{PS.paf_sample.launches - before} launches")
+    return err
+
+
+def check_paf_sample(k=32) -> list:
+    """paf_sample at the parity Body's shape (paf_inputs), then at each of
+    paf_cases: score words and ok bits equal to the plain version, which
+    rounds at the same points, one launch a call. The main case is timed
+    as single calls (``ms``, a call's host time included) and as calls
+    queued back to back (``stream_ms``), 200 of each, since a call's host
+    time spreads widely; ``floor_ms`` is an empty kernel's back-to-back
+    time on the same card."""
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
+
+    h, w, p = PAF_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    paf, pk = paf_inputs(gen, h, w, p, k)
+    args = (paf, pk.xy, pk.valid,
+            PS.LimbTable(LIMB_SEQ_BODY25, MAP_IDX_BODY25), 0.05, 10, float(h))
+    err = paf_bit_equal("main", args)
+    score, ok = PS.paf_sample(*args)
     ls = LIMB_SEQ_BODY25
     pairs = int((pk.count[torch.as_tensor(ls[:, 0])]
                  * pk.count[torch.as_tensor(ls[:, 1])]).sum())
@@ -358,20 +464,68 @@ def check_paf_sample(h=720, w=1280, k=32) -> list:
         raise SystemExit(f"plain paf_sample: the card and the CPU differ "
                          f"first at {first}; words apart {apart}")
     log("  plain paf_sample on the card == on the CPU, every step bit-equal")
+    cases = []
+    for name, cargs in paf_cases(gen, paf, pk):
+        err = max(err, paf_bit_equal(name, cargs))
+        cases.append(name)
+    log(f"  paf_sample bit-equal, one launch a call: {', '.join(cases)}")
     l, mid = ls.shape[0], 10
-    # each sample reads one 32 B sector (two channels of one pixel); the
-    # outputs are 5 B a pair; ~12 f32 operations a sample
-    bound_ms, by = bound(l * k * k * (mid * 32 + 5), l * k * k * mid * 12)
-    row = {"shape": [h, w, 52], "limbs": l, "k": k, "mid": mid,
-           "bit_equal": True, "max_abs_err": err,
+    # the bytes this run's data needs: each distinct 32 B sector of the map
+    # that a sample reads, once (the pairs of a limb share their peaks, and
+    # the samples of pairs may share pixels), the peak tables, and the
+    # outputs' 5 B a pair; ~12 f32 operations a sample
+    sectors = paf_sectors(card, args[3], paf)
+    ops = l * k * k * mid * 12
+    bound_ms, by = bound(sectors * 32 + pk.xy.numel() * 4 + pk.valid.numel()
+                         + l * k * k * 5, ops)
+    # PRs 2-7's figure, one sector a sample, so that times compare across
+    # PRs
+    sample_bound_ms = bound(l * k * k * (mid * 32 + 5), ops)[0]
+    row = {"shape": [h, w, p], "limbs": l, "k": k, "mid": mid,
+           "bit_equal": True, "max_abs_err": err, "cases": cases,
            "valid_pairs": pairs, "ok_pairs": int(ok.sum()),
-           "ms": cuda_ms(lambda: PS.paf_sample(*args)),
+           "ms": cuda_ms(lambda: PS.paf_sample(*args), reps=200),
+           "stream_ms": stream_ms(lambda: PS.paf_sample(*args), reps=200),
+           "floor_ms": stream_ms(lambda: torch.cuda._sleep(0), reps=200),
            "plain_ms": cuda_ms(lambda: PS.paf_sample_plain(*args)),
-           "bound_ms": bound_ms, "bound_by": by}
-    log(f"  paf_sample [{h},{w},52] L={l} K={k}: bit-equal, {pairs} valid "
-        f"pairs, {row['ok_pairs']} ok, kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+           "bound_ms": bound_ms, "bound_by": by, "sectors": sectors,
+           "sample_bound_ms": sample_bound_ms}
+    log(f"  paf_sample [{h},{w},{p}] L={l} K={k}: bit-equal, {pairs} valid "
+        f"pairs, {row['ok_pairs']} ok, kernel {row['ms']:.4f} ms, back to "
+        f"back {row['stream_ms']:.4f}, empty kernel back to back "
+        f"{row['floor_ms']:.4f}, plain {row['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}, {sectors} distinct sectors; one sector "
+        f"a sample {sample_bound_ms:.4f})")
     return [row]
+
+
+def paf_launch_split(row, body=None, frame=None) -> None:
+    """Adds the PAF kernel's device ms a launch (torch.profiler) to
+    check_paf_sample's row: at the phase-3 shape, and, given the parity
+    ``Body`` and its frame, inside a ``Body`` call at that call's own peak
+    counts. It runs after the timed phases."""
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
+
+    h, w, p = PAF_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    paf, pk = paf_inputs(gen, h, w, p, row["k"])
+    args = (paf, pk.xy, pk.valid,
+            PS.LimbTable(LIMB_SEQ_BODY25, MAP_IDX_BODY25), 0.05, 10, float(h))
+    pat = r"\b(paf_sample_kernel)\b"
+    flush = l2_flush()
+    row["launch_ms"] = launch_ms(lambda: PS.paf_sample(*args), pat)[
+        "paf_sample_kernel"]
+    row["cold_launch_ms"] = launch_ms(
+        lambda: (flush.zero_(), PS.paf_sample(*args)), pat)[
+            "paf_sample_kernel"]
+    msg = (f"phase-3 shape {row['launch_ms']:.4f}, L2 flushed before each "
+           f"{row['cold_launch_ms']:.4f}")
+    if body is not None:
+        row["body_launch_ms"] = launch_ms(lambda: body(frame), pat, reps=5)[
+            "paf_sample_kernel"]
+        msg += f", in a Body call {row['body_launch_ms']:.4f}"
+    log(f"  paf_sample device ms a launch: {msg}")
 
 
 def spiral(h, w):
@@ -838,11 +992,11 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def parity_path() -> dict:
+def parity_path() -> tuple:
     """The reference-parity path at full width in f32: ISLSignPos(Body,
     Hand()) on a seeded 720x1280 frame and Hand on two 256x256 crops; the
     three kernels of the path must each launch, kernel 3 must see a valid
-    pair and kernel 4 foreground."""
+    pair and kernel 4 foreground. -> (numbers, the Body, its frame)."""
     from islx_torch.core.config import HandConfig, PoseConfig
     from islx_torch.isl.translator import ISLSignPos
     from islx_torch.ops import cc_label as CC
@@ -899,7 +1053,7 @@ def parity_path() -> dict:
         f"{found} hand parts found; Body {res['body_ms']:.1f} ms/call, "
         f"Hand {res['hand_ms_256']:.1f} ms/call (256 px crop, 4 scales); "
         f"launches {launches}")
-    return res
+    return res, body, frame
 
 
 def parity_small_check() -> None:
@@ -1075,8 +1229,9 @@ def main(argv=None) -> int:
     cc_rows = check_cc_label(CC_CASES)
     torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
     if args.kernels:
-        log("[7] labelling kernel, device ms per launch")
+        log("[7] labelling and PAF kernels, device ms per launch")
         cc_launch_split(cc_rows)
+        paf_launch_split(paf_rows[0])
         return finish({"phase3": {"nms_mask_rows": nms_rows,
                                   "nms_first_k": nfk_rows,
                                   "paf_sample": paf_rows, "cc_label": cc_rows},
@@ -1109,11 +1264,12 @@ def main(argv=None) -> int:
     trans = translation(hand_cfg)
 
     log("[6] reference-parity path, full width, f32")
-    parity = parity_path()
+    parity, body, frame = parity_path()
     parity_small_check()
 
-    log("[7] labelling kernel, device ms per launch")
+    log("[7] labelling and PAF kernels, device ms per launch")
     cc_launch_split(cc_rows)
+    paf_launch_split(paf_rows[0], body, frame)
 
     def entry(name, source, replaces, launches, rows, main=0):
         bench = rows[main]

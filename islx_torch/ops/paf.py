@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from islx_torch.core.runtime import div, rdiv, sqrt_rn
-from islx_torch.ops.paf_sample import (_fma, _inv_mid, _samples_t,
-                                       paf_sample)
+from islx_torch.ops.paf_sample import (LimbTable, _fma, _inv_mid,
+                                       _samples_t, paf_sample)
 
 # Limb connection tables (reference: src/body.py:109-126).
 LIMB_SEQ_BODY25 = np.array(
@@ -70,15 +70,16 @@ class CompactConnections(NamedTuple):
 
 
 def score_limbs(paf: torch.Tensor, peaks_xy: torch.Tensor,
-                peaks_valid: torch.Tensor, limb_seq: np.ndarray,
-                map_idx: np.ndarray, thre2: float = 0.05, mid_num: int = 10,
+                peaks_valid: torch.Tensor, limbs: LimbTable,
+                thre2: float = 0.05, mid_num: int = 10,
                 orig_h: float = None) -> LimbScores:
     """paf [H,W,P] full-resolution PAF maps, peaks_xy [C,K,2] int32,
-    peaks_valid [C,K] -> every limb's K x K pair scores [L,K,K]
-    (islx/ops/paf.py:91); ``orig_h`` is the height in the distance prior."""
+    peaks_valid [C,K], the limb table made once -> every limb's K x K pair
+    scores [L,K,K] (islx/ops/paf.py:91); ``orig_h`` is the height in the
+    distance prior."""
     score, ok = paf_sample(paf.contiguous(), peaks_xy.to(torch.int32)
-                           .contiguous(), peaks_valid.contiguous(), limb_seq,
-                           map_idx, thre2, mid_num, orig_h)
+                           .contiguous(), peaks_valid.contiguous(), limbs,
+                           thre2, mid_num, orig_h)
     return LimbScores(score=score, ok=ok)
 
 

@@ -7,6 +7,11 @@ hand-written kernel in ``islx_torch/csrc/paf_sample.cu``; on a CPU tensor it
 runs :func:`paf_sample_plain`, the plain PyTorch version of the same
 function, in the same operation order. There is no fallback between the
 two: a CUDA tensor the kernel cannot take raises.
+
+Every function here takes its limb table as a :class:`LimbTable`,
+checked and laid out once; a caller that scores many frames
+(``pose.body.Body``) makes one at construction, so that a call does no
+numpy work.
 """
 from __future__ import annotations
 
@@ -21,10 +26,38 @@ from islx_torch.core.runtime import rdiv, sqrt_rn
 from islx_torch.ops import _build
 
 
-def _limb_table(limb_seq, map_idx, device) -> torch.Tensor:
-    """[L,4] int32 rows (a part, b part, x channel, y channel)."""
-    tab = np.concatenate([np.asarray(limb_seq), np.asarray(map_idx)], 1)
-    return torch.from_numpy(tab.astype(np.int32)).to(device)
+MAX_LIMBS = 64         # rows of the table the kernel takes by value
+MAX_THREADS = 1024     # a block's threads: rows * K
+# pairs a block, as rows of K: 384 blocks at L=24, K=32 on 132 SMs, the
+# fastest in a parity Body call (PERF.md §6)
+BLOCK_PAIRS = 64
+
+
+class LimbTable:
+    """A limb table checked and laid out once: ``rows`` [L,4] int32 (a part,
+    b part, x channel, y channel), the same rows as a ctypes array that the
+    kernel's launch copies into its parameters, and the largest part and
+    channel for the per-call range check."""
+
+    def __init__(self, limb_seq, map_idx):
+        tab = np.concatenate([np.asarray(limb_seq).reshape(-1, 2),
+                              np.asarray(map_idx).reshape(-1, 2)], 1)
+        if tab.size and tab.min() < 0:
+            raise ValueError("paf_sample: limb table out of range")
+        tab = tab.astype(np.int32)
+        self.rows = torch.from_numpy(tab)
+        self.c_rows = (ctypes.c_int32 * tab.size)(*tab.ravel().tolist())
+        self.max_part = int(tab[:, :2].max(initial=-1))
+        self.max_chan = int(tab[:, 2:].max(initial=-1))
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+def block_rows(k: int) -> int:
+    """Rows of candidates a block takes: BLOCK_PAIRS pairs, at least one
+    row, at most K."""
+    return max(1, min(k, BLOCK_PAIRS // k))
 
 
 @functools.lru_cache(maxsize=32)
@@ -42,19 +75,20 @@ def _samples_t(mid_num: int, device) -> torch.Tensor:
     return torch.from_numpy(t.astype(np.float32)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
-def _kernel_tables(rows: tuple, mid_num: int, device: str):
-    """The kernel's limb table [L,4] and sample positions on ``device``,
-    made once: a copy to the card per call would cost more than the
-    kernel."""
-    tab = torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 4)
-    return tab, _samples_t(mid_num, device)
-
-
 def _inv_mid(mid_num: int) -> float:
     """The mean's factor: XLA rewrites the JAX code's ``sum / mid`` into a
     multiply by the f32 reciprocal."""
     return float(np.float32(1.0 / mid_num))
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars(thre2: float, mid_num: int, orig_h: float) -> tuple:
+    """The kernel's f32 scalars: thre2, half the height, the hit count to
+    pass, 1/mid and the sample step ``_samples_t`` multiplies by."""
+    step = np.float32(1.0 / (mid_num - 1)) if mid_num > 1 else 0.0
+    return (float(np.float32(thre2)),
+            float(np.float32(0.5 * float(np.float32(orig_h)))),
+            float(np.float32(0.8 * mid_num)), _inv_mid(mid_num), float(step))
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -65,24 +99,26 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def paf_sample_plain(paf: torch.Tensor, peaks_xy: torch.Tensor,
-                     peaks_valid: torch.Tensor, limb_seq, map_idx,
+                     peaks_valid: torch.Tensor, limbs: LimbTable,
                      thre2: float = 0.05, mid_num: int = 10,
                      orig_h: float = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """paf [H,W,P] f32, peaks_xy [C,K,2] int, peaks_valid [C,K] bool ->
-    (score [L,K,K] f32, ok [L,K,K] bool); islx/ops/paf.py:61-117.
+    """paf [H,W,P] f32, peaks_xy [C,K,2] int, peaks_valid [C,K] bool,
+    limbs (L rows) -> (score [L,K,K] f32, ok [L,K,K] bool);
+    islx/ops/paf.py:61-117.
 
     The arithmetic is the JAX code's as XLA compiles it for the CPU: the
     sample points, each sample's dot with the unit vector, the mean's sum
     of products and the mean plus prior are fused multiply-adds, and the
-    mean's sum runs over the 2*mid products in (sample, x/y) order."""
-    terms = paf_sample_terms(paf, peaks_xy, peaks_valid, limb_seq, map_idx,
-                             thre2, mid_num, orig_h)
+    mean's sum runs over the 2*mid products in (sample, x/y) order (at
+    mid 2, XLA's program adds the two samples' dots instead)."""
+    terms = paf_sample_terms(paf, peaks_xy, peaks_valid, limbs, thre2,
+                             mid_num, orig_h)
     return terms["score"], terms["ok"]
 
 
 def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
-                     peaks_valid: torch.Tensor, limb_seq, map_idx,
+                     peaks_valid: torch.Tensor, limbs: LimbTable,
                      thre2: float = 0.05, mid_num: int = 10,
                      orig_h: float = None) -> dict:
     """:func:`paf_sample_plain`'s intermediate tensors by name, in the order
@@ -91,7 +127,7 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
     h, w = paf.shape[0], paf.shape[1]
     if orig_h is None:
         orig_h = h
-    tab = _limb_table(limb_seq, map_idx, paf.device).long()
+    tab = limbs.rows.to(paf.device).long()
     a = peaks_xy[tab[:, 0]].float()                       # [L,K,2]
     b = peaks_xy[tab[:, 1]].float()
     vec = b[:, None, :, :] - a[:, :, None, :]             # [L,K,K,2]
@@ -107,10 +143,14 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
     sy = paf[yi, xi, tab[:, 3, None, None, None]]
     ux_, uy_ = ux[..., None], uy[..., None]
     score_mid = _fma(sy, uy_, sx * ux_)
-    total = torch.zeros_like(norm)
-    for m in range(mid_num):
-        total = _fma(sx[..., m], ux, total)
-        total = _fma(sy[..., m], uy, total)
+    if mid_num == 2:
+        # XLA sums the two samples' dots, not the four products
+        total = score_mid[..., 0] + score_mid[..., 1]
+    else:
+        total = torch.zeros_like(norm)
+        for m in range(mid_num):
+            total = _fma(sx[..., m], ux, total)
+            total = _fma(sy[..., m], uy, total)
     prior = torch.clamp_max(rdiv(0.5 * float(np.float32(orig_h)), norm) - 1.0,
                             0.0)
     score = _fma(total, torch.full_like(total, _inv_mid(mid_num)), prior)
@@ -123,29 +163,32 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
             "prior": prior, "score": score, "ok": ok}
 
 
+@functools.cache
 def _kernel():
     lib = _build.load("paf_sample")
     fn = lib.islx_paf_sample
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def paf_sample(paf: torch.Tensor, peaks_xy: torch.Tensor,
-               peaks_valid: torch.Tensor, limb_seq, map_idx,
+               peaks_valid: torch.Tensor, limbs: LimbTable,
                thre2: float = 0.05, mid_num: int = 10, orig_h: float = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """paf [H,W,P] f32, peaks_xy [C,K,2] int32, peaks_valid [C,K] bool,
-    limb_seq/map_idx [L,2] host tables -> (score [L,K,K] f32, ok [L,K,K]
-    bool).
+    limbs (L rows) -> (score [L,K,K] f32, ok [L,K,K] bool).
 
     CUDA tensors go through the sm_90a kernel on the current stream (no
     synchronisation; ``paf_sample.launches`` counts the launches), CPU
-    tensors through :func:`paf_sample_plain`."""
+    tensors through :func:`paf_sample_plain`. The two outputs are views of
+    one allocation."""
+    if not isinstance(limbs, LimbTable):
+        raise TypeError(f"paf_sample: need a LimbTable, got {type(limbs)}")
     if paf.device.type == "cpu":
-        return paf_sample_plain(paf, peaks_xy, peaks_valid, limb_seq, map_idx,
-                                thre2, mid_num, orig_h)
+        return paf_sample_plain(paf, peaks_xy, peaks_valid, limbs, thre2,
+                                mid_num, orig_h)
     if paf.device.type != "cuda":
         raise ValueError(f"paf_sample: unsupported device {paf.device}")
     if paf.dtype != torch.float32 or paf.dim() != 3:
@@ -156,47 +199,45 @@ def paf_sample(paf: torch.Tensor, peaks_xy: torch.Tensor,
         raise TypeError(f"paf_sample: need peaks_xy [C,K,2] int32, got "
                         f"{peaks_xy.dtype} {tuple(peaks_xy.shape)}")
     if peaks_valid.dtype != torch.bool \
-            or tuple(peaks_valid.shape) != tuple(peaks_xy.shape[:2]):
+            or peaks_valid.shape != peaks_xy.shape[:2]:
         raise TypeError("paf_sample: need peaks_valid [C,K] bool")
+    dev = paf.device
     for name, x in (("paf", paf), ("peaks_xy", peaks_xy),
                     ("peaks_valid", peaks_valid)):
-        if x.device != paf.device:
+        if x.device != dev:
             raise ValueError(f"paf_sample: {name} on {x.device}, paf on "
-                             f"{paf.device}")
+                             f"{dev}")
         if not x.is_contiguous():
             raise ValueError(f"paf_sample: {name} must be contiguous")
     h, w, p = paf.shape
     c, k = peaks_xy.shape[:2]
-    parts, chans = np.asarray(limb_seq), np.asarray(map_idx)
-    if parts.size and (parts.min() < 0 or parts.max() >= c
-                       or chans.min() < 0 or chans.max() >= p):
+    if limbs.max_part >= c or limbs.max_chan >= p:
         raise ValueError("paf_sample: limb table out of range")
+    if len(limbs) > MAX_LIMBS:
+        raise ValueError(f"paf_sample: {len(limbs)} limbs, at most "
+                         f"{MAX_LIMBS}")
     if mid_num < 1 or h * w == 0:
         raise ValueError(f"paf_sample: need mid_num >= 1 and a non-empty "
                          f"map, got {mid_num}, {h}x{w}")
-    rows = tuple(map(tuple, np.concatenate([parts, chans], 1).tolist()))
-    tab, t = _kernel_tables(rows, mid_num, str(paf.device))
-    l = tab.shape[0]
-    if orig_h is None:
-        orig_h = h
-    score = torch.empty((l, k, k), dtype=torch.float32, device=paf.device)
-    ok = torch.empty((l, k, k), dtype=torch.uint8, device=paf.device)
-    if score.numel() == 0:
-        return score, ok.view(torch.bool)
-    with torch.cuda.device(paf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(paf.data_ptr(), peaks_xy.data_ptr(),
-                        peaks_valid.data_ptr(), tab.data_ptr(), t.data_ptr(),
-                        score.data_ptr(), ok.data_ptr(), h, w, p, l, k,
-                        mid_num, float(np.float32(thre2)),
-                        float(np.float32(0.5 * float(np.float32(orig_h)))),
-                        float(np.float32(0.8 * mid_num)),
-                        _inv_mid(mid_num), stream)
-    if err != 0:
-        raise RuntimeError(f"paf_sample: kernel launch failed "
-                           f"(cudaError {err})")
+    if k > MAX_THREADS:
+        raise ValueError(f"paf_sample: K = {k}, at most {MAX_THREADS}")
+    l = len(limbs)
+    n = l * k * k
+    # one allocation, for host time: the score words, then the ok bytes
+    # (two strided views: each view op costs host time of the order of an
+    # allocation)
+    buf = torch.empty(-(-5 * n // 4) * 4, dtype=torch.uint8, device=dev)
+    score = buf.view(torch.float32).as_strided((l, k, k), (k * k, k, 1))
+    ok = buf.view(torch.bool).as_strided((l, k, k), (k * k, k, 1), 4 * n)
+    if n == 0:
+        return score, ok
+    _build.launch("paf_sample", _kernel(), dev, paf.data_ptr(),
+                  peaks_xy.data_ptr(), peaks_valid.data_ptr(), limbs.c_rows,
+                  buf.data_ptr(), buf.data_ptr() + 4 * n, h, w, p, l, k,
+                  mid_num, block_rows(k),
+                  *_scalars(thre2, mid_num, h if orig_h is None else orig_h))
     paf_sample.launches += 1
-    return score, ok.view(torch.bool)
+    return score, ok
 
 
 paf_sample.launches = 0

@@ -21,6 +21,7 @@ from islx_torch.core.config import PoseConfig
 from islx_torch.core.runtime import div, resolve_device, true_f32
 from islx_torch.ops import grouping
 from islx_torch.ops.paf import LIMB_TABLES, LimbScores, score_limbs
+from islx_torch.ops.paf_sample import LimbTable
 from islx_torch.ops.peaks import Peaks, find_peaks
 from islx_torch.ops.preprocess import pad_normalize
 from islx_torch.ops.resize import output_size, resize_cubic
@@ -79,6 +80,7 @@ class Body:
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.limb_seq, self.map_idx = LIMB_TABLES[model_type]
+        self.limbs = LimbTable(self.limb_seq, self.map_idx)
         if forward_fn is not None:
             self._forward = lambda x, cd: forward_fn(weights, x, cd)
             return
@@ -112,9 +114,8 @@ class Body:
             heat, paf = self._maps(ori_img)
             pk = find_peaks(heat[:, :, :cfg.njoint - 1], cfg.thre1,
                             cfg.max_peaks)
-            ls = score_limbs(paf, pk.xy, pk.valid, self.limb_seq,
-                             self.map_idx, cfg.thre2, cfg.mid_num,
-                             orig_h=float(ori_img.shape[0]))
+            ls = score_limbs(paf, pk.xy, pk.valid, self.limbs, cfg.thre2,
+                             cfg.mid_num, orig_h=float(ori_img.shape[0]))
         return pk, ls
 
     def __call__(self, ori_img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -128,26 +128,46 @@ def test_nms_first_k_bit_equal_on_sparse_planes():
 
 
 @pytest.mark.gpu
-def test_paf_sample_bit_equal_on_card():
+@pytest.mark.parametrize("mid_num", [1, 2, 7, 10, 11])
+@pytest.mark.parametrize("table", ["body25", "coco"])
+@pytest.mark.parametrize("layout", ["channel pairs", "odd channels",
+                                    "off 8 bytes"])
+def test_paf_sample_bit_equal_on_card(mid_num, table, layout):
     """The fused PAF sampling kernel == its plain version on the card: ok
-    and score bit for bit (both round every step the same way)."""
+    and score words bit for bit (both round every step the same way), one
+    launch a call, for both limb tables, with the tables' channels
+    (cx, cx + 1), cx even, with odd first channels, and on a map that
+    starts off an 8-byte boundary; some invalid peaks lie outside the map,
+    two past 2^24."""
     _need_gpu()
+    from islx_torch.ops.paf import LIMB_TABLES
+
     rng = np.random.RandomState(2)
     h, w, c, k = 184, 240, 25, 12
     paf = torch.from_numpy(rng.rand(h, w, 52).astype(np.float32) - 0.4)
     xy = np.stack([rng.randint(0, w, (c, k)), rng.randint(0, h, (c, k))], -1)
     valid = rng.rand(c, k) > 0.3
-    from islx_torch.ops.paf import LIMB_SEQ_BODY25, MAP_IDX_BODY25
-    args = (paf.cuda(), torch.from_numpy(xy.astype(np.int32)).cuda(),
-            torch.from_numpy(valid).cuda(), LIMB_SEQ_BODY25, MAP_IDX_BODY25,
-            0.05, 10, float(h))
+    far = np.array([[-7, h + 3], [w + 40, -1], [2 ** 30, 5],
+                    [-2 ** 31, 2 ** 31 - 1]])
+    bad = np.argwhere(~valid)
+    xy[tuple(bad[:4].T)] = far[:len(bad[:4])]
+    seq, idx = LIMB_TABLES[table]
+    card = paf.cuda()
+    if layout == "odd channels":
+        idx = (idx + 1) % 52
+    elif layout == "off 8 bytes":
+        card = torch.empty(paf.numel() + 1, device="cuda")[1:].view(h, w, 52)
+        card.copy_(paf)
+    limbs = PS.LimbTable(seq, idx)
+    args = (card, torch.from_numpy(xy.astype(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda(), limbs, 0.05, mid_num, float(h))
     before = PS.paf_sample.launches
     score, ok = PS.paf_sample(*args)
     torch.cuda.synchronize()
     assert PS.paf_sample.launches == before + 1
     pscore, pok = PS.paf_sample_plain(*args)
     assert torch.equal(ok, pok) and bool(ok.any())
-    assert torch.equal(score, pscore)
+    assert torch.equal(score.view(torch.int32), pscore.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -202,12 +222,24 @@ def test_new_kernels_refuse_what_they_cannot_take():
     xy = torch.zeros(2, 3, 2, dtype=torch.int32, device="cuda")
     valid = torch.ones(2, 3, dtype=torch.bool, device="cuda")
     seq, idx = np.array([[0, 1]]), np.array([[2, 3]])
+    limbs = PS.LimbTable(seq, idx)
     before = PS.paf_sample.launches
     for args in ((paf.double(), xy, valid), (paf, xy.long(), valid),
                  (paf, xy, valid.int()), (paf, xy, valid.cpu()),
                  (paf.transpose(0, 1), xy, valid)):
         with pytest.raises((TypeError, ValueError)):
-            PS.paf_sample(*args, seq, idx)
+            PS.paf_sample(*args, limbs)
     with pytest.raises(ValueError):
-        PS.paf_sample(paf, xy, valid, seq, np.array([[2, 4]]))
+        PS.paf_sample(paf, xy, valid, PS.LimbTable(seq, [[2, 4]]))
+    with pytest.raises(ValueError):
+        PS.paf_sample(paf, xy, valid, PS.LimbTable(
+            np.zeros((PS.MAX_LIMBS + 1, 2)), np.zeros((PS.MAX_LIMBS + 1, 2))))
+    with pytest.raises(TypeError):
+        PS.paf_sample(paf, xy, valid, seq, idx)
+    with pytest.raises(ValueError):
+        PS.paf_sample(paf, xy, valid, limbs, mid_num=0)
+    big = torch.zeros(2, 1025, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        PS.paf_sample(paf, big, torch.ones(2, 1025, dtype=torch.bool,
+                                           device="cuda"), limbs)
     assert PS.paf_sample.launches == before

@@ -103,20 +103,37 @@ def _peak_tables(rng, c, k, h, w):
     return xy, valid
 
 
-@pytest.mark.parametrize("mid_num,thre2", [(10, 0.05), (7, -0.1)])
-def test_score_limbs_matches_pallas_and_xla(rng, mid_num, thre2):
+@pytest.mark.parametrize("mid_num,thre2,table", [
+    pytest.param(10, 0.05, "body25", id="10-0.05"),
+    pytest.param(7, -0.1, "body25", id="7--0.1"),
+    pytest.param(1, 0.05, "body25", id="1-0.05"),
+    pytest.param(2, 0.05, "body25", id="2-0.05"),
+    pytest.param(11, 0.05, "body25", id="11-0.05"),
+    pytest.param(10, 0.05, "coco", id="coco-10-0.05"),
+    pytest.param(1, 0.05, "coco", id="coco-1-0.05")])
+def test_score_limbs_matches_pallas_and_xla(rng, mid_num, thre2, table):
     """ok and score bit for bit (the norm's square root is correctly
-    rounded, as XLA's is: PyTorch's CPU f32 sqrt is not)."""
+    rounded, as XLA's is: PyTorch's CPU f32 sqrt is not), with both limb
+    tables, at mid 1 (the first sample alone) and 2 (the two endpoints
+    alone) as at 7, 10 and 11."""
     h, w, k, c = 92, 64, 16, 25
+    seq, idx = {"body25": (JP.LIMB_SEQ_BODY25, JP.MAP_IDX_BODY25),
+                "coco": (JP.LIMB_SEQ_COCO, JP.MAP_IDX_COCO)}[table]
     paf = rng.rand(h, w, 52).astype(np.float32) - 0.4
     xy, valid = _peak_tables(rng, c, k, h, w)
     args = (jnp.asarray(paf), jnp.asarray(xy), jnp.asarray(valid),
-            jnp.asarray(JP.LIMB_SEQ_BODY25), jnp.asarray(JP.MAP_IDX_BODY25))
+            jnp.asarray(seq), jnp.asarray(idx))
     want = JP.score_limbs(*args, thre2, mid_num, orig_h=jnp.float32(h))
     pallas = score_limbs_pallas(*args, thre2, mid_num, jnp.float32(h), True)
+    limbs = TPS.LimbTable(seq, idx)
     got = TP.score_limbs(torch.from_numpy(paf), torch.from_numpy(xy),
-                         torch.from_numpy(valid), JP.LIMB_SEQ_BODY25,
-                         JP.MAP_IDX_BODY25, thre2, mid_num, orig_h=float(h))
+                         torch.from_numpy(valid), limbs, thre2, mid_num,
+                         orig_h=float(h))
+    np.testing.assert_array_equal(
+        got.score.numpy(), TPS.paf_sample_plain(
+            torch.from_numpy(paf), torch.from_numpy(xy),
+            torch.from_numpy(valid), limbs, thre2, mid_num,
+            float(h))[0].numpy())
     for ref in (want, pallas):
         np.testing.assert_array_equal(np.asarray(ref.ok), got.ok.numpy())
         np.testing.assert_array_equal(np.asarray(ref.score), got.score.numpy())
@@ -140,7 +157,7 @@ def test_score_one_limb_bit_equal(rng):
     xy = np.stack([a, b]).astype(np.int32)
     got = TPS.paf_sample(torch.from_numpy(paf2), torch.from_numpy(xy),
                          torch.from_numpy(np.stack([va, vb])),
-                         np.array([[0, 1]]), np.array([[0, 1]]), 0.05, 10,
+                         TPS.LimbTable([[0, 1]], [[0, 1]]), 0.05, 10,
                          float(h))
     np.testing.assert_array_equal(np.asarray(sw), got[0][0].numpy())
     np.testing.assert_array_equal(np.asarray(ok), got[1][0].numpy())
