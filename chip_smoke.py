@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero and the last line is never printed):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile the four CUDA kernels from islx_torch/csrc (one nvcc
+2. build: compile the five CUDA kernels from islx_torch/csrc (one nvcc
    per source, all started together, sm_90a);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (masks, indices, labels and ok bits bit-equal),
@@ -16,17 +16,29 @@ Phases (any failure exits non-zero and the last line is never printed):
    exit) and maps with peaks where its row bands meet, K = 32 and K = 1;
    the PAF scoring kernel at the parity Body's shape, timed single and back
    to back beside an empty kernel's back-to-back time, and bit-equal at
-   mid 1, 7 and 11, with the COCO table, with channels other than
-   (cx, cx + 1) pairs, off an 8-byte boundary, and with invalid peaks
-   outside the map; the bound counts the distinct sectors read; the plain
+   mid 1, 2, 4, 7, 8, 11 and 16-20, with the COCO table, with channels
+   other than (cx, cx + 1) pairs, off an 8-byte boundary, and with invalid
+   peaks outside the map; the bound counts the distinct sectors read; the plain
    PAF scoring on the card bit-equal to the CPU's; the labelling kernel on
    blob maps and on maps built to break a tiled labeller, timed single and
-   back to back;
+   back to back; the int8 conv kernel bit-equal at every distinct conv
+   shape of the int8 BODY_25 (184x144 bucket) and hand nets (160 and 184
+   px crops) in each output mode they use, and on ragged shapes, timed at
+   the dominant shape beside its bound and torch._int_mm's GEMM; the
+   activation quantize kernel bit-equal at the int8 step's input shapes,
+   timed;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
    counters must show the main path went through every kernel; the same
    step in f32 on a small input must match the plain CPU path;
+4c. the fused-160s5 step with int8 W8A8 CPMs, the seeded weights
+   quantized by the port's calibration on the phase's frames: conv_q must
+   launch once a conv (159 a step) and quantize once an unchained conv
+   (109); one more step holds every one of those calls word for word
+   against its plain version on the same inputs, at the batch, map size
+   and calibrated scales the step gives it; and the same int8 step in f32
+   on a small input must match the plain CPU path;
 4b. the fused-184s6 step again with ``pallas_nms=True`` (the NMS+first-K
    kernel): its packed buffer's integer planes word-equal to phase 4's;
 5. translation: BatchedTranslatePipeline at batch 16 over 48 seeded
@@ -46,10 +58,11 @@ Phases (any failure exits non-zero and the last line is never printed):
     python3 chip_smoke.py --profile
 
 runs phases 1-2, then profiles the fused step of phase 4 for both hand
-configs with torch.profiler: device ms per pipeline stage, the kernels
-that take the most device time, the port's own kernels' device time, the
-device's busy share of the steps' wall time and the CPM convolutions'
-achieved rate, as one JSON line.
+configs and the int8 step of phase 4c with torch.profiler: device ms per
+pipeline stage, the kernels that take the most device time, the port's
+own kernels' device time (the int8 convs are conv_q_kernel's: the stage
+ranges do not count them), the device's busy share of the steps' wall
+time and the CPM convolutions' achieved rate, as one JSON line.
 
     python3 chip_smoke.py --kernels
 
@@ -76,6 +89,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -349,7 +363,8 @@ def l2_flush() -> torch.Tensor:
 
 def paf_cases(gen, paf, pk) -> list:
     """(name, args) of the PAF kernel's other cases, each at the phase-3
-    shape: mid 1, 7 and 11; the COCO limb table; channel tables other than
+    shape: mid 2, 4, 8 and 16-20 (the sums in lanes), 1, 7 and 11; the
+    COCO limb table; channel tables other than
     (cx, cx + 1) pairs with cx even (odd first channels, the y channel
     before the x channel, channels apart); a map whose start is off an
     8-byte boundary; and invalid peaks whose coordinates lie outside the
@@ -372,7 +387,10 @@ def paf_cases(gen, paf, pk) -> list:
     valid &= ~bad
     n = int(bad.sum())
     xy[bad] = far[torch.arange(n, device="cuda") % len(far)]
-    return [
+    # mid 2, 4, 8 and 16-20: the mean's sum in vector lanes (SUM_LANES)
+    lanes = [(f"mid {m}", (paf, pk.xy, pk.valid, body, 0.05, m, float(h)))
+             for m in (2, 4, 8, 16, 17, 18, 19, 20)]
+    return lanes + [
         ("mid 1", (paf, pk.xy, pk.valid, body, 0.05, 1, float(h))),
         ("mid 7", (paf, pk.xy, pk.valid, body, -0.1, 7, float(h))),
         ("mid 11", (paf, pk.xy, pk.valid, body, 0.05, 11, float(h))),
@@ -691,6 +709,227 @@ def cc_launch_split(rows) -> None:
         log(f"  cc_label {row['shape']} {row['field']}: {split} ms")
 
 
+def conv_q_inputs(gen, b, h, w, cin, cout, k, act, out_dtype):
+    """Seeded arguments of ``conv_q`` on the card: int8 activations and
+    weights over the whole int8 range, f32 epilogue vectors that map the
+    sums to O(1) outputs, and an ``out_inv`` that clips some int8 outputs
+    (the activations' padded channels hold int8 noise too)."""
+    from islx_torch.ops import conv_q as CQ
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    x = s8(b, h, w, CQ.channel_stride(cin))
+    w_q = s8(cout, cin, k, k)
+    scale = (torch.rand(cout, generator=gen, device="cuda") + 0.5) / (
+        127.0 * 127.0 * (k * k * cin) ** 0.5)
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    slope = torch.rand(cout, generator=gen, device="cuda")
+    out_inv = 40.0 if out_dtype == torch.int8 else None
+    return (x, CQ.pack_weights(w_q), cin, scale, bias,
+            slope if act == "prelu" else None, act, out_dtype, out_inv)
+
+
+def _same_words(got: torch.Tensor, want: torch.Tensor) -> bool:
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        got.element_size()]
+    return got.dtype == want.dtype and torch.equal(got.view(words),
+                                                   want.view(words))
+
+
+def conv_q_bit_equal(args) -> float:
+    """conv_q == conv_q_plain on ``args`` word for word, with one launch;
+    -> the max abs error (0.0)."""
+    from islx_torch.ops import conv_q as CQ
+
+    before = CQ.conv_q.launches
+    got = CQ.conv_q(*args)
+    torch.cuda.synchronize()
+    want = CQ.conv_q_plain(*args)
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    if not _same_words(got, want) or CQ.conv_q.launches != before + 1:
+        x, w_pack, cin = args[:3]
+        raise SystemExit(
+            f"conv_q differs from its plain version at x {tuple(x.shape)}, "
+            f"w {tuple(w_pack.shape)} cin {cin}, {args[6]}, {args[7]}: "
+            f"{int((got != want).sum())} words apart (max abs err {err}), "
+            f"{CQ.conv_q.launches - before} launches")
+    return err
+
+
+def conv_shapes(hand_sizes=(160, 184), body_hw=(184, 144)) -> list:
+    """Every distinct (cin, cout, k, act, H, W, output dtype) of the int8
+    CPMs' convs as the main path runs them: BODY_25 at the fused step's
+    bucket and the hand net (6 stages) at each crop size, bf16, recorded
+    from one-image forwards of seeded int8 nets on the card."""
+    from islx_torch.core import weights as W
+    from islx_torch.models import quant
+
+    seen, core = {}, quant.QConvLayer.core
+
+    def rec(self, x_q, cd, out_inv=None):
+        out = core(self, x_q, cd, out_inv)
+        c = self.spec
+        key = (c.cin, c.cout, c.k, c.act, x_q.shape[1], x_q.shape[2],
+               str(out.dtype).split(".")[1])
+        seen.setdefault(key, c.name)
+        return out
+
+    quant.QConvLayer.core = rec
+    try:
+        with torch.inference_mode():
+            for mt, shapes in (("body25", [body_hw]),
+                               ("hand", [(s, s) for s in hand_sizes])):
+                state = W.init_params(mt, 3)
+                net = W.build(mt, quant.quantize_params(
+                    state, dict.fromkeys(state, 1.0)), torch.device("cuda"),
+                    torch.bfloat16)
+                for h, w in shapes:
+                    net(torch.rand(1, h, w, 3, device="cuda") - 0.5,
+                        torch.bfloat16)
+    finally:
+        quant.QConvLayer.core = core
+    return [(key, name) for key, name in seen.items()]
+
+
+def im2col_s8(x_q: torch.Tensor, cin: int, k: int) -> torch.Tensor:
+    """int8 NHWC [B,H,W,cs] -> [B*H*W, k*k*cin] int8 patches, zero halo,
+    (ky, kx, c) order: the operand of one GEMM that computes the conv."""
+    b, h, w, _ = x_q.shape
+    p = (k - 1) // 2
+    xp = torch.nn.functional.pad(x_q[..., :cin], (0, 0, p, p, p, p))
+    cols = xp.unfold(1, k, 1).unfold(2, k, 1)          # [B,H,W,cin,k,k]
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(b * h * w, k * k * cin)
+
+
+DOMINANT_CONV = (384, 20, 20, 128, 128, 7, "relu", torch.int8)
+
+
+def check_conv_q() -> list:
+    """conv_q bit-equal to conv_q_plain at every distinct conv shape of
+    both int8 CPMs (conv_shapes, B=2) and on ragged shapes (odd H and W,
+    B=1, channel tails), one launch a call; then timed at the dominant
+    shape (DOMINANT_CONV: the hand net's 7x7 128->128 convs at 20x20 over
+    the fused-160s5 step's 384 crops, 20 of its 159 convs a step), single
+    and back to back, beside the plain version, the bound and
+    ``torch._int_mm`` on the im2col'd operands (the GEMM alone, a floor
+    for later designs; not used by the port)."""
+    from islx_torch.ops import conv_q as CQ
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+    cases = [(2, h, w, cin, cout, k, act, dtypes[dt])
+             for (cin, cout, k, act, h, w, dt), _ in conv_shapes()]
+    cases += [(1, 23, 17, 150, 128, 7, "relu", torch.int8),
+              (1, 11, 13, 3, 64, 3, "relu", torch.int8),
+              (1, 5, 3, 206, 22, 1, "none", torch.float32),
+              (1, 1, 1, 512, 52, 1, "none", torch.float32),
+              (3, 7, 9, 180, 96, 3, "prelu", torch.bfloat16),
+              (1, 9, 5, 288, 26, 7, "prelu", torch.float32)]
+    err = 0.0
+    for case in cases:
+        err = max(err, conv_q_bit_equal(conv_q_inputs(gen, *case)))
+    log(f"  conv_q bit-equal, one launch a call: {len(cases)} shapes "
+        f"({len(cases) - 6} of the int8 CPMs at B=2, 6 ragged)")
+    b, h, w, cin, cout, k, act, dt = DOMINANT_CONV
+    args = conv_q_inputs(gen, *DOMINANT_CONV)
+    err = max(err, conv_q_bit_equal(args))
+    m, kk = b * h * w, k * k * cin
+    ops = 2.0 * m * cout * kk
+    bytes_ = (args[0].numel() + args[1].numel() + m * cout
+              + 4 * 2 * cout)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS_PER_S, bytes_ / PEAK_BYTES_PER_S
+    row = {"shape": [b, h, w, cin, cout, k], "act": act, "out": "int8",
+           "cases": len(cases) + 1, "bit_equal": True, "max_abs_err": err,
+           "ms": cuda_ms(lambda: CQ.conv_q(*args)),
+           "stream_ms": stream_ms(lambda: CQ.conv_q(*args)),
+           "plain_ms": cuda_ms(lambda: CQ.conv_q_plain(*args), reps=3,
+                               warmup=1),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ops": ops}
+    a_mat = im2col_s8(args[0], cin, k)
+    b_mat = args[1][:cout, :, :cin].reshape(cout, kk)     # [N,K]: K-major
+    try:
+        want = torch._int_mm(a_mat, b_mat.t())
+        row["library_ms"] = cuda_ms(lambda: torch._int_mm(a_mat, b_mat.t()))
+        row["library"] = "torch._int_mm [M,K] x [K,N] s8 (col-major B)"
+        del want
+    except RuntimeError as e:
+        row["library_ms"] = None
+        row["library"] = f"torch._int_mm refused: {str(e)[:200]}"
+    del a_mat
+    row["tops"] = ops / (row["stream_ms"] * 1e-3) / 1e12
+    lib = row["library_ms"]
+    log(f"  conv_q {b}x{h}x{w} {cin}->{cout} k{k}: kernel {row['ms']:.4f} "
+        f"ms, back to back {row['stream_ms']:.4f} ({row['tops']:.0f} "
+        f"TOP/s), plain {row['plain_ms']:.2f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), _int_mm "
+        f"{'refused' if lib is None else f'{lib:.4f} ms'}")
+    return [row]
+
+
+QUANTIZE_CASES = [((192, 23, 18, 384), torch.bfloat16),   # dense blocks
+                  ((192, 23, 18, 180), torch.float32),    # body stages
+                  ((384, 160, 160, 3), torch.float32),    # hand input
+                  ((384, 20, 20, 150), torch.float32),    # hand stages
+                  ((192, 184, 144, 3), torch.float32),    # body input
+                  ((1, 5, 3, 206), torch.bfloat16),
+                  ((2, 7, 9, 22), torch.float32)]
+
+
+def check_quantize() -> list:
+    """The quantize kernel bit-equal to quantize_plain, one launch a call,
+    at the int8 step's input shapes (QUANTIZE_CASES: C=384 bf16 is BODY_25's
+    dense-block input, 90 of the step's 109 quantizations; the others its
+    f32 stage and net inputs, and ragged ones), with .5 ties and values
+    past the int8 range; timed at each of the first four."""
+    from islx_torch.ops import conv_q as CQ
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape, dt in QUANTIZE_CASES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dt)
+        x.view(-1)[::97] = 2.5                      # a tie at inv = 1
+        for inv in (1.0, 37.25, 127.0 / 3e-8):
+            before = CQ.quantize.launches
+            got = CQ.quantize(x, inv)
+            torch.cuda.synchronize()
+            want = CQ.quantize_plain(x, inv)
+            if not torch.equal(got, want) or (
+                    CQ.quantize.launches != before + 1):
+                raise SystemExit(
+                    f"quantize differs from its plain version at "
+                    f"{tuple(shape)} {dt}, inv {inv}: "
+                    f"{int((got != want).sum())} bytes apart, "
+                    f"{CQ.quantize.launches - before} launches")
+        if len(rows) == 4:
+            continue
+        # the function reads C channels and writes C int8 ones; the
+        # padded layout's extra writes (zeros past C) are the port's cost
+        read = x.numel() * x.element_size()
+        bytes_ = read + x.numel()
+        row = {"shape": list(shape), "dtype": str(dt).split(".")[1],
+               "bit_equal": True, "max_abs_err": 0,
+               "padded_bound_ms": (read + got.numel()) / PEAK_BYTES_PER_S
+               * 1e3,
+               "ms": cuda_ms(lambda: CQ.quantize(x, 37.25)),
+               "stream_ms": stream_ms(lambda: CQ.quantize(x, 37.25)),
+               "plain_ms": cuda_ms(lambda: CQ.quantize_plain(x, 37.25)),
+               "bound_ms": bytes_ / PEAK_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None}
+        rows.append(row)
+        log(f"  quantize {tuple(shape)} {row['dtype']}: bit-equal, kernel "
+            f"{row['ms']:.4f} ms, back to back {row['stream_ms']:.4f}, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"(bytes; {row['padded_bound_ms']:.4f} with the padded "
+            f"channels' writes)")
+    return rows
+
+
 def seeded_i420(rng, b: int, hb: int, wb: int) -> np.ndarray:
     """Seeded I420 frames [b*hb*wb*3/2] u8: smooth luma + noise, chroma."""
     yy, xx = np.mgrid[0:hb, 0:wb]
@@ -719,19 +958,38 @@ def calibrate_thre1(pipe, flat, b, hb, wb, orig_hw) -> float:
     return thre1
 
 
-def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False):
-    """The full-width bf16 fused pipeline on seeded weights, a seeded I420
-    batch at the bucket of ``orig_hw`` and its calibrated thre1, warmed
-    up -> (pipe, host frames, hb, wb, thre1)."""
+def int8_states(hand_cfg, host, b, hb, wb, n=8):
+    """The seeded full-width weights quantized to int8 W8A8 by the port's
+    calibration on the card, on the first ``n`` frames of the phase's own
+    I420 batch (decoded on the card), as the CLI's gate does on a clip's
+    frames -> (body, hand) states."""
+    from islx_torch.cli import quantize_states
+    from islx_torch.core import weights as W
+    from islx_torch.ops.yuv import frame_bytes, yuv420_to_bgr
+
+    flat = torch.from_numpy(host[:n * frame_bytes(hb, wb)]).cuda()
+    frames = yuv420_to_bgr(flat, n, hb, wb).to(torch.uint8).cpu().numpy()
+    return quantize_states(W.init_params("body25", 0),
+                           W.init_params("hand", 1), list(frames), hand_cfg,
+                           device="cuda")
+
+
+def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False,
+                int8=False):
+    """The full-width fused pipeline, bf16 on seeded weights or (``int8``)
+    with those weights quantized (int8_states), a seeded I420 batch at the
+    bucket of ``orig_hw`` and its calibrated thre1, warmed up -> (pipe,
+    host frames, hb, wb, thre1)."""
     from islx_torch.core import weights as W
     from islx_torch.pipeline.batch_pose import FusedPosePipeline, bucket_for
 
     hb, wb = bucket_for(*orig_hw)
-    pipe = FusedPosePipeline(W.init_params("body25", 0),
-                             W.init_params("hand", 1), hand_cfg=hand_cfg,
+    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
+    states = (int8_states(hand_cfg, host, b, hb, wb) if int8
+              else (W.init_params("body25", 0), W.init_params("hand", 1)))
+    pipe = FusedPosePipeline(*states, hand_cfg=hand_cfg,
                              compute_dtype=torch.bfloat16, device=device,
                              pallas_nms=pallas_nms)
-    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
     flat = pipe.upload_frames(host)
     thre1 = calibrate_thre1(pipe, flat, b, hb, wb, orig_hw)
     for _ in range(2):                                   # warm-up
@@ -740,21 +998,96 @@ def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False):
     return pipe, host, hb, wb, thre1
 
 
+def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
+                    ) -> dict:
+    """One more int8 fused step with every QConvLayer's conv and input
+    quantization watched: each call's kernel output is held word for word
+    against conv_q_plain (quantize_plain) on the same int8 input (float
+    input), weights, scales and output mode, ``chunk`` frames or crops at a
+    time, and each call must launch its kernel once. So every conv of the
+    step is checked at the batch, map size and calibrated scales the main
+    path gives it. -> {"convs", "quantizes", "max_abs_err", "shapes"}."""
+    from islx_torch.models import quant
+    from islx_torch.ops import conv_q as CQ
+
+    core, quantize = quant.QConvLayer.core, quant.QConvLayer.quantize
+    seen = {"convs": 0, "quantizes": 0, "max_abs_err": 0.0, "shapes": set()}
+
+    def fail(what, name, x):
+        raise SystemExit(f"main path: {what} differs from its plain version "
+                         f"at {name}, input {tuple(x.shape)}")
+
+    def watched_core(self, x_q, cd, out_inv=None):
+        c, before = self.spec, CQ.conv_q.launches
+        out = core(self, x_q, cd, out_inv)
+        if CQ.conv_q.launches != before + 1:
+            raise SystemExit(f"main path: {c.name} launched conv_q "
+                             f"{CQ.conv_q.launches - before} times")
+        for i in range(0, x_q.shape[0], chunk):
+            want = CQ.conv_q_plain(x_q[i:i + chunk], self.w_pack, c.cin,
+                                   self.scale, self.bias, self.slope, c.act,
+                                   out.dtype, out_inv)
+            got = out[i:i + chunk]
+            if not _same_words(got, want):
+                fail("conv_q", c.name, x_q)
+            seen["max_abs_err"] = max(seen["max_abs_err"], float(
+                (got.float() - want.float()).abs().max()))
+        seen["convs"] += 1
+        seen["shapes"].add((x_q.shape[0], x_q.shape[1], x_q.shape[2], c.cin,
+                            c.cout, c.k, str(out.dtype).split(".")[1]))
+        return out
+
+    def watched_quantize(self, x):
+        before = CQ.quantize.launches
+        out = quantize(self, x)
+        if CQ.quantize.launches != before + 1:
+            raise SystemExit(f"main path: {self.spec.name} launched "
+                             f"quantize {CQ.quantize.launches - before} "
+                             f"times")
+        for i in range(0, x.shape[0], chunk):
+            want = CQ.quantize_plain(x[i:i + chunk].permute(0, 2, 3, 1),
+                                     self.inv)
+            if not torch.equal(out[i:i + chunk], want):
+                fail("quantize", self.spec.name, x)
+        seen["quantizes"] += 1
+        return out
+
+    quant.QConvLayer.core = watched_core
+    quant.QConvLayer.quantize = watched_quantize
+    try:
+        pipe.device_step_flat(flat, b, hb, wb, orig_hw, thre1,
+                              input_format="yuv420").cpu()
+    finally:
+        quant.QConvLayer.core, quant.QConvLayer.quantize = core, quantize
+    seen["shapes"] = sorted(seen["shapes"])
+    return seen
+
+
 def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
-               device="cuda", pallas_nms=False) -> dict:
+               device="cuda", pallas_nms=False, int8=False) -> dict:
     """Time the fused step; ``pallas_nms`` takes the NMS+first-K kernel in
-    place of the NMS mask kernel. The step's kernel must launch once a
-    step and the other not at all."""
+    place of the NMS mask kernel, ``int8`` the int8 W8A8 CPMs. The step's
+    NMS kernel must launch once a step and the other not at all; conv_q
+    once a conv a step under int8 (114 body convs and the hand net's
+    15 + 2 + 7 * (stages - 1)), else never."""
+    from islx_torch.ops import conv_q as CQ
     from islx_torch.ops import nms_first_k as NF
     from islx_torch.ops import nms_mask as N
 
     pipe, host, hb, wb, thre1 = fused_setup(hand_cfg, b, orig_hw, device,
-                                            pallas_nms)
+                                            pallas_nms, int8)
+    convs = 114 + 17 + 7 * (hand_cfg.stages - 1) if int8 else 0
+    # the unchained convs' inputs: BODY_25's first conv, 90 dense-block
+    # convs and 12 Mconv6/7; the hand's first conv, conv6_1 and each
+    # stage's Mconv1
+    quants = 103 + 2 + (hand_cfg.stages - 1) if int8 else 0
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     N.nms_mask_rows.launches = 0
     NF.nms_first_k.launches = 0
+    CQ.conv_q.launches = 0
+    CQ.quantize.launches = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         packed = pipe.device_step_flat(pipe.upload_frames(host), b, hb, wb,
@@ -762,6 +1095,8 @@ def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
                                        input_format="yuv420").cpu().numpy()
     dt = (time.perf_counter() - t0) / steps
     counts = (N.nms_mask_rows.launches, NF.nms_first_k.launches)
+    conv_launches = CQ.conv_q.launches
+    quant_launches = CQ.quantize.launches
     launches = counts[1] if pallas_nms else counts[0]
     want = steps if device == "cuda" else 0
     if counts != ((0, want) if pallas_nms else (want, 0)):
@@ -769,6 +1104,11 @@ def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
                          f"times in {steps} fused steps (pallas_nms="
                          f"{pallas_nms}: want one of the step's kernel a "
                          f"step)")
+    if conv_launches != (convs * steps if device == "cuda" else 0) or (
+            quant_launches != (quants * steps if device == "cuda" else 0)):
+        raise SystemExit(f"conv_q / quantize launched {conv_launches} / "
+                         f"{quant_launches} times in {steps} fused steps, "
+                         f"want {convs} / {quants} a step")
     body, boxes, peaks = pipe.unpack(packed, b)
     xy, score, count, pair, cscore, cok = pipe.body.unpack(body, b)
     k = pipe.body.cfg.max_peaks
@@ -778,20 +1118,37 @@ def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
             and (boxes[:, 3] >= 0).all() and pair.max() < k * k):
         raise SystemExit("fused step output out of range")
     size = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
+    max_mem = (torch.cuda.max_memory_allocated() / 2 ** 30
+               if device == "cuda" else None)
+    checked = None
+    if int8 and device == "cuda":
+        t_check = time.perf_counter()
+        checked = main_path_convs(pipe, pipe.upload_frames(host), b, hb, wb,
+                                  orig_hw, thre1)
+        if (checked["convs"], checked["quantizes"]) != (convs, quants):
+            raise SystemExit(f"main path: {checked['convs']} convs and "
+                             f"{checked['quantizes']} quantizations checked,"
+                             f" want {convs} and {quants}")
+        log(f"  int8 step: all {convs} conv_q calls ({len(checked['shapes'])}"
+            f" distinct shapes) and {quants} quantize calls word-equal to "
+            f"their plain versions at the main path's batch, maps and "
+            f"scales ({time.perf_counter() - t_check:.1f} s)")
     res = {"hand": f"{size}px/s{hand_cfg.stages}", "batch": b,
            "bucket": [hb, wb], "thre1": thre1, "ms_per_step": dt * 1e3,
            "frames_per_s": b / dt, "peaks": int(count.sum()),
            "hand_boxes": int((boxes[:, 3] > 0).sum()),
            "pallas_nms": pallas_nms, "nms_launches": launches,
-           "steps": steps,
-           "max_mem_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
-                          if device == "cuda" else None)}
+           "int8": int8, "conv_q_launches": conv_launches,
+           "main_path_checked": checked,
+           "quantize_launches": quant_launches, "steps": steps,
+           "max_mem_gb": max_mem}
     kind = "nms_first_k" if pallas_nms else "nms_mask"
-    log(f"  fused step {res['hand']}{' select' if pallas_nms else ''}: "
-        f"{res['ms_per_step']:.1f} ms/step, "
+    log(f"  fused step {res['hand']}{' select' if pallas_nms else ''}"
+        f"{' int8' if int8 else ''}: {res['ms_per_step']:.1f} ms/step, "
         f"{res['frames_per_s']:.1f} frames/s at B={b}, {res['peaks']} peaks,"
         f" {res['hand_boxes']} hand boxes, {kind} launches "
-        f"{launches}/{steps}")
+        f"{launches}/{steps}, conv_q launches {conv_launches}/{steps}, "
+        f"quantize launches {quant_launches}/{steps}")
     return res, pipe, packed
 
 
@@ -805,7 +1162,8 @@ def integer_planes(pipe, packed, b) -> dict:
 
 
 PORT_KERNELS = ("nms_mask_kernel", "band_kernel", "gather_kernel",
-                "paf_sample_kernel", "cc_tile", "cc_border", "cc_final")
+                "paf_sample_kernel", "cc_tile", "cc_border", "cc_final",
+                "conv_q_kernel", "quantize_kernel")
 STAGES = ("yuv420_to_bgr", "body_cpm", "body_peaks", "paf_limbs",
           "hand_boxes", "hand_crops", "hand_cpm", "hand_peaks", "pack")
 
@@ -828,7 +1186,8 @@ def conv_flops(model_type: str, h: int, w: int, stages: int = 6) -> int:
                      for convs in heads for c in convs)
 
 
-def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
+def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3,
+                 int8=False) -> dict:
     """torch.profiler over a few fused steps: device ms per stage (the
     ``record_function`` ranges of the pipeline), the kernels that take the
     most device time, the device's busy share of the window, and the CPM
@@ -836,7 +1195,8 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe, host, hb, wb, thre1 = fused_setup(hand_cfg, b, orig_hw, "cuda")
+    pipe, host, hb, wb, thre1 = fused_setup(hand_cfg, b, orig_hw, "cuda",
+                                            int8=int8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -866,19 +1226,26 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
     # the port's own kernels (csrc/*.cu, launched through ctypes): the
     # profiler traces them but counts them in no stage's range
     port = {k: sum(ms for name, ms in kernel_ms.items()
-                   if re.search(rf"(^|::){k}(\(|$)", name))
+                   if re.search(rf"(^|::){k}(<[^>]*>)?(\(|$)", name))
             for k in PORT_KERNELS}
-    res = {"hand": f"{size}px/s{hand_cfg.stages}", "batch": b,
-           "bucket": [hb, wb], "steps": steps, "wall_ms_per_step": wall_ms,
+    peak = PEAK_INT8_OPS_PER_S if int8 else PEAK_BF16_OPS_PER_S
+    res = {"hand": f"{size}px/s{hand_cfg.stages}", "int8": int8,
+           "batch": b, "bucket": [hb, wb], "steps": steps,
+           "wall_ms_per_step": wall_ms,
            "device_ms_per_step": device_ms,
            "device_busy_share": device_ms / wall_ms, "stage_ms": stage_ms,
-           "conv_tflop_per_s": {k: v / (stage_ms[k] * 1e-3) / 1e12
-                                for k, v in flops.items()},
-           "conv_bound_ms": {k: v / PEAK_BF16_OPS_PER_S * 1e3
-                             for k, v in flops.items()},
+           # under int8 the convs run in no stage range: their rate is
+           # conv_q_kernel's over both nets' operations
+           "conv_tflop_per_s": (
+               {"conv_q_kernel": sum(flops.values())
+                / (port["conv_q_kernel"] * 1e-3) / 1e12} if int8 else
+               {k: v / (stage_ms[k] * 1e-3) / 1e12
+                for k, v in flops.items()}),
+           "conv_bound_ms": {k: v / peak * 1e3 for k, v in flops.items()},
            "port_kernel_ms": port,
            "top_kernels": [{"name": n[:90], "ms": t} for n, t in top]}
-    log(f"  profile {res['hand']}: wall {wall_ms:.1f} ms/step, device "
+    log(f"  profile {res['hand']}{' int8' if int8 else ''}: wall "
+        f"{wall_ms:.1f} ms/step, device "
         f"{device_ms:.1f} ms ({100 * res['device_busy_share']:.1f}% busy)")
     for name, ms in stage_ms.items():
         log(f"    {name:14s} {ms:8.2f} ms")
@@ -887,9 +1254,12 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3) -> dict:
     return res
 
 
-def small_reference_check() -> None:
+def small_reference_check(int8: bool = False) -> None:
     """The card's f32 fused step == the plain CPU path on a small input:
-    peak, pair, box and hand-peak tables equal, scores within f16."""
+    peak, pair, box and hand-peak tables equal, scores within f16. With
+    ``int8``, both run the same int8 W8A8 states, calibrated on the CPU on
+    the input's frames (the int8 CPMs are exact on both devices)."""
+    from islx_torch.cli import quantize_states
     from islx_torch.core import weights as W
     from islx_torch.core.config import HandConfig, PoseConfig
     from islx_torch.pipeline.batch_pose import FusedPosePipeline
@@ -901,10 +1271,13 @@ def small_reference_check() -> None:
     kw = dict(pose_cfg=PoseConfig(max_peaks=8, thre2=-0.5),
               hand_cfg=HandConfig(scale_search=(0.25,)),
               compute_dtype=torch.float32)
-    cpu = FusedPosePipeline(bp, hp, device="cpu", **kw)
-    gpu = FusedPosePipeline(bp, hp, device="cuda", **kw)
     frames = (np.random.RandomState(0).rand(2, 48, 48, 3) * 255
               ).astype(np.uint8)
+    if int8:
+        bp, hp = quantize_states(bp, hp, list(frames), kw["hand_cfg"],
+                                 device="cpu")
+    cpu = FusedPosePipeline(bp, hp, device="cpu", **kw)
+    gpu = FusedPosePipeline(bp, hp, device="cuda", **kw)
     with torch.inference_mode():
         heat = cpu.body.net(torch.from_numpy(frames).float() / 256 - 0.5)[1]
     thre1 = float(np.quantile(heat[..., :25].numpy(), 0.9))
@@ -932,7 +1305,8 @@ def small_reference_check() -> None:
               float(np.abs(tw[4] - tg[4]).max()))
     if err > 1e-2:
         raise SystemExit(f"small check: scores differ by {err}")
-    log(f"  small f32 step on the card vs CPU plain path: body tables and "
+    log(f"  small f32{' int8' if int8 else ''} step on the card vs CPU "
+        f"plain path: body tables and "
         f"hand boxes equal ({int(tw[2].sum())} peaks, "
         f"{int((xw[:, 3] > 0).sum())} hand boxes), hand peaks equal "
         f"{same:.3f}, score max abs diff {err:.2e}, words equal "
@@ -1174,7 +1548,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label")
+    names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label", "conv_q")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))       # one nvcc a source
     log(f"[2] build: {', '.join(n + '.cu' for n in names)} in "
@@ -1193,7 +1567,8 @@ def main(argv=None) -> int:
                                    stages=5)
     if args.profile:
         log("[P] fused step under torch.profiler, full width, bf16")
-        prof = [profile_step(hand_cfg), profile_step(hand_160)]
+        prof = [profile_step(hand_cfg), profile_step(hand_160),
+                profile_step(hand_160, int8=True)]
         return finish({"profile": prof, "card": card})
 
     log("[3] kernels against their plain versions")
@@ -1227,6 +1602,8 @@ def main(argv=None) -> int:
     # the parity Hand's other net sizes; tiles: maps built to break a
     # tiled labeller
     cc_rows = check_cc_label(CC_CASES)
+    conv_rows = check_conv_q()
+    quant_rows = check_quantize()
     torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
     if args.kernels:
         log("[7] labelling and PAF kernels, device ms per launch")
@@ -1234,7 +1611,9 @@ def main(argv=None) -> int:
         paf_launch_split(paf_rows[0])
         return finish({"phase3": {"nms_mask_rows": nms_rows,
                                   "nms_first_k": nfk_rows,
-                                  "paf_sample": paf_rows, "cc_label": cc_rows},
+                                  "paf_sample": paf_rows, "cc_label": cc_rows,
+                                  "conv_q": conv_rows,
+                                  "quantize": quant_rows},
                        "card": card, "seconds": time.perf_counter() - t_start})
 
     log("[4] fused pose step, full width, bf16")
@@ -1242,6 +1621,22 @@ def main(argv=None) -> int:
     step184, _, packed_mask = fused_step(hand_cfg)
     step160 = fused_step(hand_160)[0]
     small_reference_check()
+
+    log("[4c] fused pose step, full width, int8 W8A8 CPMs (160 px, 5 "
+        "stages), calibrated on the phase's frames")
+    step_q = fused_step(hand_160, int8=True)[0]
+    log(f"  int8 fused-160s5 {step_q['ms_per_step']:.1f} ms/step "
+        f"({step_q['frames_per_s']:.1f} frames/s) against bf16 fused-160s5 "
+        f"{step160['ms_per_step']:.1f} ms/step "
+        f"({step160['frames_per_s']:.1f} frames/s)")
+    small_reference_check(int8=True)
+    checked = step_q["main_path_checked"]
+    conv_rows.append({"shape": "fused-160s5 step, every conv",
+                      "calls": checked["convs"], "bit_equal": True,
+                      "max_abs_err": checked["max_abs_err"]})
+    quant_rows.append({"shape": "fused-160s5 step, every unchained conv",
+                       "calls": checked["quantizes"], "bit_equal": True,
+                       "max_abs_err": 0})
 
     log("[4b] fused select path (pallas_nms=True), fused-184s6")
     step_sel, pipe, packed_sel = fused_step(hand_cfg, pallas_nms=True)
@@ -1279,7 +1674,7 @@ def main(argv=None) -> int:
                 "bit_equal": all(r["bit_equal"] for r in rows),
                 "ms": bench["ms"], "plain_ms": bench["plain_ms"],
                 "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
-                "library_ms": None, "shapes": rows}
+                "library_ms": bench.get("library_ms"), "shapes": rows}
 
     pl = parity["launches"]
     kernels = {"kernels": [
@@ -1291,8 +1686,14 @@ def main(argv=None) -> int:
         entry("paf_sample", "islx_torch/csrc/paf_sample.cu",
               "islx/ops/pallas_paf.py:30", pl["paf_sample"], paf_rows),
         entry("cc_label", "islx_torch/csrc/cc_label.cu",
-              "islx/ops/pallas_cc.py:29", pl["label_components"], cc_rows)],
-        "fused_step": [step184, step160], "select_step": step_sel,
+              "islx/ops/pallas_cc.py:29", pl["label_components"], cc_rows),
+        entry("conv_q", "islx_torch/csrc/conv_q.cu",
+              "islx/models/quant.py:70", step_q["conv_q_launches"],
+              conv_rows),
+        entry("quantize", "islx_torch/csrc/conv_q.cu",
+              "islx/models/quant.py:63", step_q["quantize_launches"],
+              quant_rows)],
+        "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
     return finish(kernels)

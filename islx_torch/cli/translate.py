@@ -7,7 +7,9 @@ The batched fused pipeline (islx_torch.pipeline.translate). Weights are
 islx ``.npz`` or reference ``.pt`` files; without them the nets run the
 port's seeded random init. The hand config follows the per-checkpoint gate
 (``gates.json`` beside ``--hand-weights``); a recorded int8 GO, or
-``ISLX_INT8=1``, is refused: the int8 trunks are a later slice.
+``ISLX_INT8=1``, quantizes both nets to int8 W8A8, calibrated on the head
+of the clip and cached under ``<weights dir>/.int8_cache``
+(:func:`islx_torch.cli.gated_int8_params`); ``ISLX_INT8=0`` keeps bf16.
 """
 from __future__ import annotations
 
@@ -31,18 +33,6 @@ def gated_hand_cfg(hand_weights=None, log=None):
     return cfg
 
 
-def refuse_gated_int8(hand_weights=None) -> None:
-    """Raise where the checkpoint's gate (or ISLX_INT8) asks for int8."""
-    from islx_torch.core.config import int8_gated
-    from islx_torch.core.runtime import INT8_SLICE, refuse_int8
-
-    refuse_int8()
-    if hand_weights is not None:
-        go, note = int8_gated(os.path.dirname(os.path.abspath(hand_weights)))
-        if go:
-            raise NotImplementedError(f"{note}: {INT8_SLICE}")
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -58,19 +48,25 @@ def main(argv=None):
     if not os.path.exists(args.video):
         p.error(f"no such video: {args.video}")
 
+    from islx_torch.cli import gated_int8_params
     from islx_torch.core import weights as W
+    from islx_torch.core.runtime import resolve_device
     from islx_torch.models import translator as T
     from islx_torch.pipeline.translate import BatchedTranslatePipeline
 
-    refuse_gated_int8(args.hand_weights)
+    device = resolve_device(args.device)
+    hand_cfg = gated_hand_cfg(args.hand_weights, log=print)
+    bp, hp, _ = gated_int8_params(
+        (W.load(args.body_weights, "body25") if args.body_weights
+         else W.init_params("body25")),
+        (W.load(args.hand_weights, "hand") if args.hand_weights
+         else W.init_params("hand")),
+        hand_weights=args.hand_weights, body_weights=args.body_weights,
+        hand_cfg=hand_cfg, calib_clip=args.video, log=print, device=device)
     pipe = BatchedTranslatePipeline(
-        body_params=(W.load(args.body_weights, "body25")
-                     if args.body_weights else None),
-        hand_params=(W.load(args.hand_weights, "hand")
-                     if args.hand_weights else None),
+        body_params=bp, hand_params=hp,
         head_params=T.load_npz(args.head) if args.head else None,
-        hand_cfg=gated_hand_cfg(args.hand_weights, log=print),
-        batch=args.batch, device=args.device)
+        hand_cfg=hand_cfg, batch=args.batch, device=device)
     for idx, cid, expr, prob in pipe.translate_video(args.video):
         if prob >= args.min_prob:
             print(f"{idx} {prob:0.4f} {cid}-{expr}")

@@ -2,14 +2,8 @@
 from __future__ import annotations
 
 import contextlib
-import os
 
 import torch
-
-# The int8 W8A8 trunks (islx/models/quant.py) are the port's next slice.
-INT8_SLICE = ("int8 W8A8 trunks are not ported yet: they need the CUDA int8 "
-              "conv + requantize kernel of the next slice of the port "
-              "(ROADMAP.md §1, module 1)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,13 +17,6 @@ def resolve_device(device=None) -> torch.device:
             "islx_torch runs on a CUDA GPU and none is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
-
-
-def refuse_int8() -> None:
-    """Raise where ``ISLX_INT8`` asks for the int8 trunks."""
-    env = os.environ.get("ISLX_INT8")
-    if env is not None and env not in ("0", ""):
-        raise NotImplementedError(f"ISLX_INT8={env}: {INT8_SLICE}")
 
 
 def div(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """CPM weights for the port: carried across from islx, loaded, or made.
 
 The port's weight state is ``{caffe_layer: {"w" OIHW, "b"[, "p"]}}`` of f32
-CPU tensors; :meth:`islx_torch.models.cpm.CPM.load_params` takes it.
+CPU tensors; :meth:`islx_torch.models.cpm.CPM.load_params` takes it. An
+int8 layer (:mod:`islx_torch.models.quant`) holds ``{"w_q" int8 OIHW,
+"s_w", "a_scale", "b"[, "p"]}`` in place of ``w``.
 
 * :func:`from_islx_params` carries islx's params (``{name: {"w" HWIO, "b",
   "p"}}`` as numpy) across, so both packages run the very same weights.
@@ -46,20 +48,28 @@ def _t(a) -> torch.Tensor:
 
 def from_islx_params(params: Mapping[str, Mapping[str, np.ndarray]]
                      ) -> State:
-    """islx params ({name: {"w" HWIO, "b"[, "p"]}}, numpy) -> port state."""
+    """islx params ({name: {"w" HWIO, "b"[, "p"]}}, or a quantized entry's
+    {"w_q" int8 HWIO, "s_w", "a_scale", "b"[, "p"]}, numpy) -> port
+    state."""
     state: State = {}
     for name, entry in params.items():
-        out = {"w": _t(np.asarray(entry["w"]).transpose(3, 2, 0, 1)),
-               "b": _t(entry["b"])}
-        if "p" in entry:
-            out["p"] = _t(entry["p"])
+        out = {}
+        for k, v in entry.items():
+            v = np.asarray(v)
+            if k == "w_q":
+                out[k] = torch.from_numpy(np.ascontiguousarray(
+                    v.astype(np.int8).transpose(3, 2, 0, 1)))
+            elif k == "w":
+                out[k] = _t(v.transpose(3, 2, 0, 1))
+            else:
+                out[k] = _t(v)
         state[name] = out
     return state
 
 
 def to_islx_params(state: State) -> Dict[str, Dict[str, np.ndarray]]:
     """Inverse of :func:`from_islx_params` (HWIO numpy)."""
-    return {name: {k: (v.numpy().transpose(2, 3, 1, 0) if k == "w"
+    return {name: {k: (v.numpy().transpose(2, 3, 1, 0) if k in ("w", "w_q")
                        else v.numpy()) for k, v in entry.items()}
             for name, entry in state.items()}
 
@@ -132,6 +142,7 @@ def init_params(model_type: str, seed: int = 0) -> State:
 
 def build(model_type: str, state: State, device, compute_dtype
           ) -> cpm.CPM:
-    """A CPM net on ``device`` with ``state`` loaded and weights cast."""
+    """A CPM net on ``device`` with ``state`` loaded and the float
+    layers' weights cast (int8 layers stay int8)."""
     net = cpm.CPM(model_type).load_params(state)
     return net.to(device).cast(compute_dtype).eval()

@@ -14,8 +14,9 @@
 // The rounding follows the JAX code as XLA compiles it for the CPU (the
 // reference the tests hold the port to): the sample point, s_m, the mean's
 // running sum and the mean plus prior are fused multiply-adds (fmaf), the
-// mean sums the 2*mid products in (sample, x/y) order (at mid 2, XLA's
-// program adds the two samples' s_m instead) and multiplies by the f32
+// mean sums the 2*mid products in (sample, x/y) order, in the `vf` lanes
+// over the first `vec` samples that XLA's vectorised loop uses at some
+// mids (ops/paf_sample.py::SUM_LANES), and multiplies by the f32
 // reciprocal of mid. Every other multiply and add is an explicit
 // round-to-nearest intrinsic, which nvcc does not contract, since a single
 // rounding could move a rint at .5 or a `> thre2` count. Division and
@@ -84,17 +85,40 @@ __device__ __forceinline__ float t_at(int m, int mid, float step) {
                                    : __fmul_rn(static_cast<float>(m), step);
 }
 
-template <int kMid>
+// The map words of samples m0 .. m0 + kIn - 1 below `end`, every load
+// issued before any is used.
+template <int kIn>
+__device__ __forceinline__ void load_samples(float2 (&s)[kIn], int m0,
+                                             int end, int mid, float step,
+                                             const float* __restrict__ paf,
+                                             float vx, float vy, float ax,
+                                             float ay, int h, int w, int p,
+                                             int cx, int cy) {
+#pragma unroll
+  for (int c = 0; c < kIn; ++c) {
+    if (m0 + c < end) {
+      const float t = t_at(m0 + c, mid, step);
+      s[c] = word(paf, clip_rint(__fmaf_rn(vx, t, ax), w),
+                  clip_rint(__fmaf_rn(vy, t, ay), h), w, p, cx, cy);
+    }
+  }
+}
+
+// kMid > 0: mid is kMid, every sample's load in flight at once; else
+// kChunk at a time. kVf: the lanes of the mean's sum (vec samples in them,
+// a multiple of kVf; at kMid > 0, kVf is 1 and vec 0).
+template <int kMid, int kVf>
 __global__ void __launch_bounds__(kMaxThreads)
 paf_sample_kernel(const float* __restrict__ paf,
                   const int32_t* __restrict__ xy,
                   const uint8_t* __restrict__ valid,
                   const __grid_constant__ Limbs limbs,
                   float* __restrict__ score, uint8_t* __restrict__ ok, int h,
-                  int w, int p, int k, int mid_rt, int rows, float thre2,
-                  float half_h, float crit, float inv_mid, float step) {
-  // at kMid every sample's load is in flight at once; else kChunk at a time
+                  int w, int p, int k, int mid_rt, int rows, int vec,
+                  float thre2, float half_h, float crit, float inv_mid,
+                  float step) {
   constexpr int kIn = kMid > 0 ? kMid : kChunk;
+  static_assert(kIn % kVf == 0, "a chunk holds whole rounds of the lanes");
   const int mid = kMid > 0 ? kMid : mid_rt;
   extern __shared__ Peak smem[];
   Peak* pa = smem;                                  // [rows]
@@ -133,25 +157,46 @@ paf_sample_kernel(const float* __restrict__ paf,
             0.001f);
   const float ux = __fdiv_rn(vx, norm);
   const float uy = __fdiv_rn(vy, norm);
-  float sum = mid == 2 ? -0.0f : 0.0f;   // -0 + s_0 is s_0, signed zeros too
   int hits = 0;
   float2 s[kIn];
-  for (int m0 = 0; m0 < mid; m0 += kIn) {
-    // every load of the chunk, then the chain over it in sample order
+  // the lanes: sample m into lane m % kVf (m0 is a multiple of kIn, so
+  // that is c % kVf, known at compile time); with one lane there are none,
+  // and the chain below starts at sample 0 at compile time
+  float sum = 0.0f;
+  int tail = 0;
+  if constexpr (kVf > 1) {
+    float lane[kVf];
 #pragma unroll
-    for (int c = 0; c < kIn; ++c) {
-      if (m0 + c < mid) {
-        const float t = t_at(m0 + c, mid, step);
-        s[c] = word(paf, clip_rint(__fmaf_rn(vx, t, a.x), w),
-                           clip_rint(__fmaf_rn(vy, t, a.y), h), w, p, cx, cy);
+    for (int v = 0; v < kVf; ++v) lane[v] = v == 0 ? 0.0f : -0.0f;
+    for (int m0 = 0; m0 < vec; m0 += kIn) {
+      load_samples(s, m0, vec, mid, step, paf, vx, vy, a.x, a.y, h, w, p,
+                   cx, cy);
+#pragma unroll
+      for (int c = 0; c < kIn; ++c) {
+        if (m0 + c < vec) {
+          float& acc = lane[c % kVf];
+          acc = __fmaf_rn(s[c].y, uy, __fmaf_rn(s[c].x, ux, acc));
+          hits += __fmaf_rn(s[c].y, uy, __fmul_rn(s[c].x, ux)) > thre2;
+        }
       }
     }
+#pragma unroll
+    for (int n = kVf / 2; n > 0; n /= 2) {
+#pragma unroll
+      for (int v = 0; v < n; ++v) lane[v] = __fadd_rn(lane[v], lane[v + n]);
+    }
+    sum = lane[0];
+    tail = vec;
+  }
+  // the samples from `tail` on, chained onto the lanes' sum in order
+  for (int m0 = tail; m0 < mid; m0 += kIn) {
+    load_samples(s, m0, mid, mid, step, paf, vx, vy, a.x, a.y, h, w, p, cx,
+                 cy);
 #pragma unroll
     for (int c = 0; c < kIn; ++c) {
       if (m0 + c < mid) {
         const float s_m = __fmaf_rn(s[c].y, uy, __fmul_rn(s[c].x, ux));
-        sum = mid == 2 ? __fadd_rn(sum, s_m)
-                       : __fmaf_rn(s[c].y, uy, __fmaf_rn(s[c].x, ux, sum));
+        sum = __fmaf_rn(s[c].y, uy, __fmaf_rn(s[c].x, ux, sum));
         hits += s_m > thre2 ? 1 : 0;
       }
     }
@@ -169,16 +214,18 @@ paf_sample_kernel(const float* __restrict__ paf,
 // paf [H,W,P] f32, xy [C,K,2] s32, valid [C,K] u8, limb_rows [L,4] s32 in
 // host memory (a part, b part, x channel, y channel) -> score [L,K,K] f32,
 // ok [L,K,K] u8. `rows` rows of candidates i a block (rows * K <= 1024);
-// `step` = f32(1 / (mid - 1)). Launches on `stream` and returns
+// the mean's sum in `vf` lanes (1, 2, 4 or 8) over its first `vec`
+// samples; `step` = f32(1 / (mid - 1)). Launches on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape it cannot take.
 extern "C" int islx_paf_sample(const float* paf, const int32_t* xy,
                                const uint8_t* valid, const int32_t* limb_rows,
                                float* score, uint8_t* ok, int h, int w, int p,
-                               int l, int k, int mid, int rows, float thre2,
-                               float half_h, float crit, float inv_mid,
-                               float step, void* stream) {
+                               int l, int k, int mid, int rows, int vf,
+                               int vec, float thre2, float half_h, float crit,
+                               float inv_mid, float step, void* stream) {
   if (l < 1 || l > kMaxLimbs || k < 1 || rows < 1 || mid < 1 ||
-      rows * k > kMaxThreads) {
+      rows * k > kMaxThreads || vec < 0 || vec > mid || vf < 1 ||
+      vec % vf != 0 || (vf == 1 && vec != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Limbs limbs{};
@@ -188,14 +235,23 @@ extern "C" int islx_paf_sample(const float* paf, const int32_t* xy,
   const dim3 block(static_cast<unsigned int>(rows * k));
   const size_t smem = sizeof(Peak) * (rows + k);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (mid == 10) {
-    paf_sample_kernel<10><<<grid, block, smem, s>>>(
-        paf, xy, valid, limbs, score, ok, h, w, p, k, mid, rows, thre2,
-        half_h, crit, inv_mid, step);
+#define ISLX_PAF_LAUNCH(MID, VF)                                          \
+  paf_sample_kernel<MID, VF><<<grid, block, smem, s>>>(                   \
+      paf, xy, valid, limbs, score, ok, h, w, p, k, mid, rows, vec, thre2, \
+      half_h, crit, inv_mid, step)
+  if (mid == 10 && vf == 1) {
+    ISLX_PAF_LAUNCH(10, 1);
+  } else if (vf == 1) {
+    ISLX_PAF_LAUNCH(0, 1);
+  } else if (vf == 2) {
+    ISLX_PAF_LAUNCH(0, 2);
+  } else if (vf == 4) {
+    ISLX_PAF_LAUNCH(0, 4);
+  } else if (vf == 8) {
+    ISLX_PAF_LAUNCH(0, 8);
   } else {
-    paf_sample_kernel<0><<<grid, block, smem, s>>>(
-        paf, xy, valid, limbs, score, ok, h, w, p, k, mid, rows, thre2,
-        half_h, crit, inv_mid, step);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef ISLX_PAF_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,14 @@ that dtype; a head conv (``Conv.head``, the 1x1 stage outputs the peak and
 PAF math reads) keeps an f32 epilogue. In bf16 a head conv therefore runs
 on the bf16-valued input and weight upcast to f32, which is the f32
 accumulation of the same products.
+
+A state whose entries hold ``w_q`` (:mod:`islx_torch.models.quant`) makes
+those layers int8 :class:`~islx_torch.models.quant.QConvLayer` s. Where
+the JAX code chains them (its ``_seq``), the int8 activations stay int8
+between consecutive quantized convs: each epilogue writes int8 at the next
+conv's scale and the 2x2 pools between run on int8. Its dense blocks and
+BODY_25's ``Mconv6``/``Mconv7`` are not chained (each conv quantizes its
+float input).
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from islx_torch.core.runtime import true_f32
+from islx_torch.models import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +193,9 @@ class ConvLayer(nn.Module):
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype
                 ) -> torch.Tensor:
         c = self.spec
+        obs = quant.observer()          # int8 calibration hook
+        if obs is not None:
+            obs(c.name, x)
         w = self.weight.to(compute_dtype)
         xin = x.to(compute_dtype)
         if c.head:
@@ -199,6 +211,14 @@ class ConvLayer(nn.Module):
             a = self.prelu.to(epi).view(1, -1, 1, 1)
             out = torch.where(out >= 0, out, a * out)
         return out
+
+
+def maxpool2_int8(x_q: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 max-pool ("VALID": a last odd row or column dropped)
+    of int8 NHWC [B,H,W,C]; it commutes with the monotone quantization."""
+    b, h, w, c = x_q.shape
+    x = x_q[:, :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax((2, 4))
 
 
 class CPM(nn.Module):
@@ -217,9 +237,13 @@ class CPM(nn.Module):
 
     def load_params(self, state: Dict[str, Dict[str, torch.Tensor]]
                     ) -> "CPM":
-        """Copy a port weight state ({name: {"w" OIHW, "b"[, "p"]}})."""
-        for name, layer in self.layers.items():
-            entry = state[name]
+        """Copy a port weight state ({name: {"w" OIHW, "b"[, "p"]}}); an
+        entry with ``w_q`` makes its layer an int8 QConvLayer."""
+        for name in list(self.layers):
+            layer, entry = self.layers[name], state[name]
+            if "w_q" in entry:
+                self.layers[name] = quant.QConvLayer(layer.spec, entry)
+                continue
             layer.weight.data = entry["w"].to(torch.float32).clone()
             layer.bias.data = entry["b"].to(torch.float32).clone()
             if layer.prelu is not None:
@@ -228,18 +252,52 @@ class CPM(nn.Module):
 
     def cast(self, dtype: torch.dtype) -> "CPM":
         """Store conv weights in the compute dtype once (channels_last),
-        so a step converts no weights; biases and slopes stay f32."""
+        so a step converts no weights; biases and slopes stay f32. Int8
+        layers keep their int8 weights."""
         for layer in self.layers.values():
+            if isinstance(layer, quant.QConvLayer):
+                continue
             layer.weight.data = layer.weight.data.to(dtype).contiguous(
                 memory_format=torch.channels_last)
         return self
 
+    @property
+    def quantized(self) -> bool:
+        """Whether any layer is an int8 QConvLayer."""
+        return any(isinstance(m, quant.QConvLayer)
+                   for m in self.layers.values())
+
     def _seq(self, x, layers: Sequence[Layer], cd):
-        for layer in layers:
+        """A chain of convs and pools (islx/models/cpm.py:339-381): the
+        activations stay int8 (NHWC) between consecutive quantized convs,
+        and the pools between them run on int8."""
+        n, i, x_q = len(layers), 0, None
+        while i < n:
+            layer = layers[i]
             if isinstance(layer, Pool):
                 x = F.max_pool2d(x, layer.k, layer.s)
+                i += 1
+                continue
+            mod = self.layers[layer.name]
+            if not isinstance(mod, quant.QConvLayer):
+                x = mod(x, cd)
+                i += 1
+                continue
+            if x_q is None:
+                x_q = mod.quantize(x)
+            j = i + 1                           # next conv, skipping pools
+            while j < n and isinstance(layers[j], Pool):
+                j += 1
+            nxt = self.layers[layers[j].name] if j < n else None
+            if isinstance(nxt, quant.QConvLayer) and not layer.head:
+                x_q = mod.core(x_q, cd, out_inv=nxt.inv)
+                for _ in range(i + 1, j):
+                    x_q = maxpool2_int8(x_q)
+                i = j
             else:
-                x = self.layers[layer.name](x, cd)
+                x = mod.core(x_q, cd).permute(0, 3, 1, 2)
+                x_q = None
+                i += 1
         return x
 
     def _dense_block(self, x, convs: Sequence[Conv], cd):
@@ -253,7 +311,9 @@ class CPM(nn.Module):
         st = self.spec["stages"]
         for i in range(1, 6):
             x = self._dense_block(x, st[f"Mconv{i}_stage{s}_{L}"], cd)
-        return self._seq(x, st[f"Mconv6_7_stage{s}_{L}"], cd)
+        for c in st[f"Mconv6_7_stage{s}_{L}"]:      # unchained, as in islx
+            x = self.layers[c.name](x, cd)
+        return x
 
     def body25(self, x: torch.Tensor, cd) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:

@@ -91,6 +91,26 @@ def _scalars(thre2: float, mid_num: int, orig_h: float) -> tuple:
             float(np.float32(0.8 * mid_num)), _inv_mid(mid_num), float(step))
 
 
+# How XLA's CPU program sums the mean's 2*mid products, by mid: LLVM
+# vectorises the loop over the samples at some mids. ``(vf, vec)``: the
+# first ``vec`` samples go into ``vf`` lanes, sample m into lane m % vf (a
+# lane starts at +0 for lane 0 and -0 for the others, and takes its
+# samples' x then y product as multiply-adds), the lanes are added by
+# halves ((l0 + l4) + (l2 + l6)) + ((l1 + l5) + (l3 + l7)), and the samples
+# from ``vec`` on are multiply-added onto that sum in order. Any mid not
+# listed is the plain chain, (1, 0). Read from the optimised LLVM IR of
+# ``islx.ops.paf.score_limbs`` and held bit-equal at every mid 1-20
+# (tests/test_torch_parity_kernels.py); above 20 the chain is not XLA's
+# order at every mid.
+SUM_LANES = {2: (2, 2), 4: (4, 4), 8: (8, 8), 16: (8, 16), 17: (8, 16),
+             18: (8, 16), 19: (8, 16), 20: (4, 20)}
+
+
+def sum_plan(mid_num: int) -> Tuple[int, int]:
+    """``(vf, vec)`` of :data:`SUM_LANES` for ``mid_num``."""
+    return SUM_LANES.get(mid_num, (1, 0))
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a*b + c`` with one rounding: the f32 product is exact in f64
     and the sum rounds twice (f64, then f32) only where the f64 sum is
@@ -143,14 +163,17 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
     sy = paf[yi, xi, tab[:, 3, None, None, None]]
     ux_, uy_ = ux[..., None], uy[..., None]
     score_mid = _fma(sy, uy_, sx * ux_)
-    if mid_num == 2:
-        # XLA sums the two samples' dots, not the four products
-        total = score_mid[..., 0] + score_mid[..., 1]
-    else:
-        total = torch.zeros_like(norm)
-        for m in range(mid_num):
-            total = _fma(sx[..., m], ux, total)
-            total = _fma(sy[..., m], uy, total)
+    vf, vec = sum_plan(mid_num)
+    lanes = [torch.full_like(norm, -0.0 if j else 0.0) for j in range(vf)]
+    for m in range(vec):
+        lanes[m % vf] = _fma(sy[..., m], uy, _fma(sx[..., m], ux,
+                                                  lanes[m % vf]))
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[j] + lanes[j + half] for j in range(half)]
+    total = lanes[0]
+    for m in range(vec, mid_num):
+        total = _fma(sy[..., m], uy, _fma(sx[..., m], ux, total))
     prior = torch.clamp_max(rdiv(0.5 * float(np.float32(orig_h)), norm) - 1.0,
                             0.0)
     score = _fma(total, torch.full_like(total, _inv_mid(mid_num)), prior)
@@ -167,7 +190,7 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
 def _kernel():
     lib = _build.load("paf_sample")
     fn = lib.islx_paf_sample
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -234,7 +257,7 @@ def paf_sample(paf: torch.Tensor, peaks_xy: torch.Tensor,
     _build.launch("paf_sample", _kernel(), dev, paf.data_ptr(),
                   peaks_xy.data_ptr(), peaks_valid.data_ptr(), limbs.c_rows,
                   buf.data_ptr(), buf.data_ptr() + 4 * n, h, w, p, l, k,
-                  mid_num, block_rows(k),
+                  mid_num, block_rows(k), *sum_plan(mid_num),
                   *_scalars(thre2, mid_num, h if orig_h is None else orig_h))
     paf_sample.launches += 1
     return score, ok

@@ -29,7 +29,7 @@ from torch.profiler import record_function
 
 from islx_torch.core import weights as W
 from islx_torch.core.config import DetectorConfig, HandConfig, PoseConfig
-from islx_torch.core.runtime import div, refuse_int8, resolve_device
+from islx_torch.core.runtime import div, resolve_device
 from islx_torch.ops import grouping
 from islx_torch.ops.hand_boxes import device_hand_boxes
 from islx_torch.ops.hand_peaks import find_hand_peaks_refine
@@ -236,7 +236,8 @@ class FusedPosePipeline:
     """Body CPM + on-device hand boxes + hand CPM in one device pass.
 
     ``body_params``/``hand_params`` are port weight states
-    (:mod:`islx_torch.core.weights`); ``device`` defaults to ``"cuda"`` and
+    (:mod:`islx_torch.core.weights`), float or int8 W8A8
+    (:mod:`islx_torch.models.quant`); ``device`` defaults to ``"cuda"`` and
     raises when no GPU is present unless ``"cpu"`` is asked for;
     ``pallas_nms`` is :class:`BatchedBodyPipeline`'s."""
 
@@ -248,7 +249,6 @@ class FusedPosePipeline:
                  det_cfg: Optional[DetectorConfig] = None,
                  compute_dtype=torch.bfloat16, top_m: int = 48,
                  device=None, pallas_nms: Optional[bool] = None):
-        refuse_int8()
         self.device = resolve_device(device)
         self.body = BatchedBodyPipeline(
             W.build(model_type, body_params, self.device, compute_dtype),

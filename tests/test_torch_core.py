@@ -163,26 +163,82 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     video.write_bytes(b"")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main([str(video)])
+    # int8 calibration runs the float nets on the GPU unless asked not to
+    from islx_torch import cli as gate
+    from islx_torch.core.config import HandConfig
+    from islx_torch.models import quant
+
+    frame = np.zeros((40, 56, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quant.calibrate_scales(W.init_params("hand"), "hand",
+                               [np.zeros((1, 16, 16, 3), np.float32)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gate.quantize_states(W.init_params("body25"), W.init_params("hand"),
+                             [frame], HandConfig(scale_search=(0.25,)))
+    monkeypatch.setenv("ISLX_INT8", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gate.gated_int8_params(W.init_params("body25"), W.init_params("hand"),
+                               calib_image=frame)
 
 
-def test_int8_is_refused(monkeypatch, tmp_path):
-    """ISLX_INT8=1, or a recorded int8 GO beside --hand-weights, raises
-    NotImplementedError naming the later slice; it never runs bf16."""
-    from islx_torch.cli import translate as cli
+def test_int8_gate_builds_quantized_pipelines(monkeypatch, tmp_path):
+    """ISLX_INT8=1, or a recorded int8 GO beside the hand weights, quantizes
+    both nets (calibrated on the CLI's input) and the fused pipeline builds
+    int8 CPMs; ISLX_INT8=0, a NO-GO, or no hand weights keep bf16. The
+    quantized states are cached under <weights dir>/.int8_cache, keyed on
+    the hand AND the body weight files."""
+    from islx_torch import cli
+    from islx_torch.core.config import HandConfig
+    from islx_torch.models import quant
     from islx_torch.pipeline.batch_pose import FusedPosePipeline
 
+    bp, hp = W.init_params("body25"), W.init_params("hand", 1)
+    frame = (np.random.RandomState(0).rand(40, 56, 3) * 255).astype(np.uint8)
+    cfg = HandConfig(scale_search=(0.25,))
+    logs = []
+    kw = dict(hand_cfg=cfg, calib_image=frame, log=logs.append,
+              device="cpu")
+
+    def quantized(state):
+        return all("w_q" in e and "w" not in e for e in state.values())
+
     monkeypatch.setenv("ISLX_INT8", "1")
-    with pytest.raises(NotImplementedError, match="int8"):
-        FusedPosePipeline({}, {}, device="cpu")
+    qb, qh, applied = cli.gated_int8_params(bp, hp, **kw)
+    assert applied and quantized(qb) and quantized(qh)
+    pipe = FusedPosePipeline(qb, qh, hand_cfg=cfg, device="cpu")
+    assert pipe.body.net.quantized and pipe.hand.net.quantized
+    assert isinstance(pipe.hand.net.layers["conv1_1"], quant.QConvLayer)
+
     monkeypatch.delenv("ISLX_INT8")
-    (tmp_path / "gates.json").write_text(json.dumps({"int8_default": "GO"}))
+    assert cli.gated_int8_params(bp, hp, **kw)[2] is False  # no checkpoint
     hand = tmp_path / "hand.npz"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli.refuse_gated_int8(str(hand))
-    cli.refuse_gated_int8(None)       # no checkpoint: no verdict borrowed
-    monkeypatch.setenv("ISLX_INT8", "0")
+    body = tmp_path / "body.npz"
+    hand.write_bytes(b"h")
+    body.write_bytes(b"b")
     (tmp_path / "gates.json").write_text(json.dumps({"int8_default": "GO"}))
-    cli.refuse_gated_int8(str(hand))  # env 0 forces bf16, as in islx
+    paths = dict(hand_weights=str(hand), body_weights=str(body))
+    qb, qh, applied = cli.gated_int8_params(bp, hp, **paths, **kw)
+    assert applied and quantized(qb) and quantized(qh)
+    assert (tmp_path / ".int8_cache" / "int8.pt").exists()
+    meta = json.loads((tmp_path / ".int8_cache" / "meta.json").read_text())
+    assert meta["body"][0] == "body.npz" and meta["hand"][0] == "hand.npz"
+    del logs[:]
+    qb2, _, _ = cli.gated_int8_params(bp, hp, **paths, **kw)
+    assert any("loaded from" in m for m in logs)
+    assert torch.equal(qb2["conv1_1"]["w_q"], qb["conv1_1"]["w_q"])
+    body.write_bytes(b"another body")            # a changed body: calibrate
+    del logs[:]
+    cli.gated_int8_params(bp, hp, **paths, **kw)
+    assert any("calibrating" in m for m in logs)
+    assert not FusedPosePipeline(bp, hp, hand_cfg=cfg,
+                                 device="cpu").hand.net.quantized
+
+    monkeypatch.setenv("ISLX_INT8", "0")         # env 0 forces bf16
+    assert cli.gated_int8_params(bp, hp, **paths, **kw)[2] is False
+    monkeypatch.delenv("ISLX_INT8")
+    (tmp_path / "gates.json").write_text(json.dumps(
+        {"int8_default": "NO-GO"}))
+    assert cli.gated_int8_params(bp, hp, **paths, **kw)[2] is False
 
 
 def test_build_rebuilds_on_a_changed_header(monkeypatch, tmp_path):

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_field, band_cases_hold, tile_maps
+from chip_smoke import (band_field, band_cases_hold, conv_q_bit_equal,
+                        conv_q_inputs, tile_maps)
 from islx_torch.ops import cc_label as CC
+from islx_torch.ops import conv_q as CQ
 from islx_torch.ops import nms_first_k as NF
 from islx_torch.ops import nms_mask as N
 from islx_torch.ops import paf_sample as PS
@@ -128,7 +130,7 @@ def test_nms_first_k_bit_equal_on_sparse_planes():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mid_num", [1, 2, 7, 10, 11])
+@pytest.mark.parametrize("mid_num", [1, 2, 4, 7, 8, 10, 11, 16, 17, 20])
 @pytest.mark.parametrize("table", ["body25", "coco"])
 @pytest.mark.parametrize("layout", ["channel pairs", "odd channels",
                                     "off 8 bytes"])
@@ -159,8 +161,11 @@ def test_paf_sample_bit_equal_on_card(mid_num, table, layout):
         card = torch.empty(paf.numel() + 1, device="cuda")[1:].view(h, w, 52)
         card.copy_(paf)
     limbs = PS.LimbTable(seq, idx)
+    # from mid 16 a pair needs 0.8 * mid samples over thre2: a lower
+    # threshold lets some pairs of the random map pass
+    thre2 = 0.05 if mid_num < 16 else -0.1
     args = (card, torch.from_numpy(xy.astype(np.int32)).cuda(),
-            torch.from_numpy(valid).cuda(), limbs, 0.05, mid_num, float(h))
+            torch.from_numpy(valid).cuda(), limbs, thre2, mid_num, float(h))
     before = PS.paf_sample.launches
     score, ok = PS.paf_sample(*args)
     torch.cuda.synchronize()
@@ -243,3 +248,75 @@ def test_new_kernels_refuse_what_they_cannot_take():
         PS.paf_sample(paf, big, torch.ones(2, 1025, dtype=torch.bool,
                                            device="cuda"), limbs)
     assert PS.paf_sample.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,cin,cout", [(1, 128, 22), (3, 3, 64),
+                                        (3, 288, 96), (7, 150, 128),
+                                        (7, 206, 52)])
+@pytest.mark.parametrize("act", ["relu", "prelu", "none"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
+def test_conv_q_bit_equal_on_card(k, cin, cout, act, out):
+    """The int8 implicit-GEMM kernel == conv_q_plain, word for word, one
+    launch a call: k 1, 3 and 7 with channel tails (cin 3, 150, 206; cout
+    22, 52), each activation and output conversion, on a ragged map (odd
+    H and W, pixels not a multiple of the block's 128) whose 7x7 halo
+    covers most of it."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(k * 7 + cin)
+    conv_q_bit_equal(conv_q_inputs(gen, 3, 9, 13, cin, cout, k, act,
+                                   getattr(torch, out)))
+
+
+@pytest.mark.gpu
+def test_conv_q_refuses_what_it_cannot_take():
+    """A CUDA input the kernel does not take raises; nothing falls back
+    to the plain version."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w_pack, cin, scale, bias, slope, act, dt, oi = conv_q_inputs(
+        gen, 1, 5, 5, 150, 64, 3, "prelu", torch.float32)
+    before = CQ.conv_q.launches
+    bad = [
+        (x[..., :150].contiguous(), w_pack, cin, 64),    # stride not 16 x n
+        (x[:, :, :, 1:].contiguous(), w_pack, cin, 64),  # 159 channels
+        (x.float(), w_pack, cin, 64),                    # not int8
+        (x, w_pack[:, :, :128], cin, 64),                # packed for 128 in
+        (x, w_pack[:, :4], cin, 64),                     # not k x k taps
+        (x, w_pack, cin, 63),                            # odd cout
+    ]
+    for xx, pp, ci, co in bad:
+        with pytest.raises((TypeError, ValueError)):
+            CQ.conv_q(xx, pp, ci, scale[:co], bias[:co], slope[:co], act, dt)
+    with pytest.raises(ValueError):
+        CQ.conv_q(x, w_pack, cin, scale, bias, None, "prelu", dt)
+    with pytest.raises(ValueError):
+        CQ.conv_q(x, w_pack, cin, scale, bias, slope, act, torch.int8)
+    with pytest.raises(ValueError):
+        CQ.conv_q(x, w_pack, cin, scale.cpu(), bias, slope, act, dt)
+    assert CQ.conv_q.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((3, 9, 13, 3), "float32"),
+                                         ((2, 5, 7, 150), "float32"),
+                                         ((2, 5, 7, 288), "bfloat16"),
+                                         ((1, 1, 1, 206), "bfloat16")])
+def test_quantize_bit_equal_on_card(shape, dtype):
+    """The quantize kernel == quantize_plain, byte for byte (the padding
+    channels zero), one launch a call, on an NHWC view of a channels_last
+    tensor and on a contiguous one, with .5 ties and out-of-range values."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=gen, device="cuda") * 200).to(
+        getattr(torch, dtype))
+    x.view(-1)[::5] = 2.5
+    nchw = x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    for inp in (x, nchw.permute(0, 2, 3, 1)):
+        for inv in (1.0, 0.37, 127.0 / 3e-8):
+            before = CQ.quantize.launches
+            got = CQ.quantize(inp, inv)
+            torch.cuda.synchronize()
+            assert CQ.quantize.launches == before + 1
+            assert torch.equal(got, CQ.quantize_plain(inp, inv))

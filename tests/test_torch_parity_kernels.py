@@ -110,12 +110,15 @@ def _peak_tables(rng, c, k, h, w):
     pytest.param(2, 0.05, "body25", id="2-0.05"),
     pytest.param(11, 0.05, "body25", id="11-0.05"),
     pytest.param(10, 0.05, "coco", id="coco-10-0.05"),
-    pytest.param(1, 0.05, "coco", id="coco-1-0.05")])
+    pytest.param(1, 0.05, "coco", id="coco-1-0.05")] + [
+    pytest.param(m, 0.05, "body25", id=f"{m}-0.05")
+    for m in (3, 4, 5, 6, 8, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20)])
 def test_score_limbs_matches_pallas_and_xla(rng, mid_num, thre2, table):
     """ok and score bit for bit (the norm's square root is correctly
     rounded, as XLA's is: PyTorch's CPU f32 sqrt is not), with both limb
-    tables, at mid 1 (the first sample alone) and 2 (the two endpoints
-    alone) as at 7, 10 and 11."""
+    tables, at every mid 1-20: 1 (the first sample alone), 2 (the two
+    endpoints alone), the chained sums and the mids where XLA's program
+    sums the samples in vector lanes (2, 4, 8, 16-20)."""
     h, w, k, c = 92, 64, 16, 25
     seq, idx = {"body25": (JP.LIMB_SEQ_BODY25, JP.MAP_IDX_BODY25),
                 "coco": (JP.LIMB_SEQ_COCO, JP.MAP_IDX_COCO)}[table]
