@@ -23,15 +23,19 @@ Phases (any failure exits non-zero and the last line is never printed):
    blob maps and on maps built to break a tiled labeller, timed single and
    back to back; the int8 conv kernel bit-equal at every distinct conv
    shape of the int8 BODY_25 (184x144 bucket) and hand nets (160 and 184
-   px crops) in each output mode they use, and on ragged shapes, timed at
-   the dominant shape beside its bound and torch._int_mm's GEMM; the
-   activation quantize kernel bit-equal at the int8 step's input shapes,
-   timed;
+   px crops) in each output mode they use (conv1_1 as the 1x1 conv over
+   its 27 patch channels), and on ragged shapes, timed at four shapes
+   (TIMED_CONVS: the dominant 7x7, a hand-trunk 3x3, a BODY_25 dense-block
+   3x3 and conv1_1's patches) single and back to back beside its bound
+   and torch._int_mm's GEMM; the activation quantize kernel bit-equal at
+   the int8 step's input shapes, in patch mode too, timed;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
-   counters must show the main path went through every kernel; the same
-   step in f32 on a small input must match the plain CPU path;
+   counters must show the main path went through every kernel; each
+   step's 384 hand crops, cut on the card from its frames, word-equal to
+   the CPU function's on the same inputs; the same step in f32 on a small
+   input must match the plain CPU path, hand peaks included;
 4c. the fused-160s5 step with int8 W8A8 CPMs, the seeded weights
    quantized by the port's calibration on the phase's frames: conv_q must
    launch once a conv (159 a step) and quantize once an unchained conv
@@ -761,7 +765,8 @@ def conv_q_bit_equal(args) -> float:
 
 def conv_shapes(hand_sizes=(160, 184), body_hw=(184, 144)) -> list:
     """Every distinct (cin, cout, k, act, H, W, output dtype) of the int8
-    CPMs' convs as the main path runs them: BODY_25 at the fused step's
+    CPMs' convs as the kernel sees them (conv1_1 as the 1x1 conv over 27
+    patch channels) on the main path: BODY_25 at the fused step's
     bucket and the hand net (6 stages) at each crop size, bf16, recorded
     from one-image forwards of seeded int8 nets on the card."""
     from islx_torch.core import weights as W
@@ -772,8 +777,8 @@ def conv_shapes(hand_sizes=(160, 184), body_hw=(184, 144)) -> list:
     def rec(self, x_q, cd, out_inv=None):
         out = core(self, x_q, cd, out_inv)
         c = self.spec
-        key = (c.cin, c.cout, c.k, c.act, x_q.shape[1], x_q.shape[2],
-               str(out.dtype).split(".")[1])
+        key = (self.cin, c.cout, 1 if self.patch else c.k, c.act,
+               x_q.shape[1], x_q.shape[2], str(out.dtype).split(".")[1])
         seen.setdefault(key, c.name)
         return out
 
@@ -804,20 +809,87 @@ def im2col_s8(x_q: torch.Tensor, cin: int, k: int) -> torch.Tensor:
     return cols.permute(0, 1, 2, 4, 5, 3).reshape(b * h * w, k * k * cin)
 
 
-DOMINANT_CONV = (384, 20, 20, 128, 128, 7, "relu", torch.int8)
+# The convs phase 3 times, (name, (B, H, W, cin, cout, k, act, output),
+# the input channels a pixel that the conv's function reads): the dominant
+# one first (the hand stages' 7x7 128->128 at 20x20 over the fused-160s5
+# step's 384 crops, 20 of its 159 convs a step), a hand-trunk 3x3 (conv2_2
+# at 80x80), a BODY_25 dense-block 3x3 (23x18 over B=192, unchained: bf16
+# out) and conv1_1 at 160 px as the 1x1 conv over its 27 patch channels,
+# whose function (islx's 3x3 conv) reads the 3 channels of each pixel.
+TIMED_CONVS = [
+    ("hand Mconv2-5, 7x7", (384, 20, 20, 128, 128, 7, "relu", torch.int8),
+     128),
+    ("hand conv2_2, 3x3", (384, 80, 80, 128, 128, 3, "relu", torch.int8),
+     128),
+    ("BODY_25 dense block, 3x3",
+     (192, 23, 18, 128, 128, 3, "prelu", torch.bfloat16), 128),
+    ("conv1_1 patches, 1x1 over 27",
+     (384, 160, 160, 27, 64, 1, "relu", torch.int8), 3),
+]
+
+
+def time_conv_q(gen, name, case, fn_cin) -> dict:
+    """conv_q at one of TIMED_CONVS: bit-equal, then timed single and back
+    to back beside the plain version, the bound and ``torch._int_mm`` on
+    the im2col'd operands (the GEMM alone, im2col not timed; K padded to
+    the input's channel stride where the GEMM needs a multiple of 8).
+
+    The bound counts the bytes of the conv's function: ``fn_cin`` int8
+    channels a pixel read once, the weights, the output and the epilogue's
+    constants. A patch-mode conv reads ``cin`` (27) patch channels a pixel,
+    the port's layout: that figure is kept beside it as ``patch_bound_ms``."""
+    from islx_torch.ops import conv_q as CQ
+
+    b, h, w, cin, cout, k, act, dt = case
+    args = conv_q_inputs(gen, *case)
+    err = conv_q_bit_equal(args)
+    m, kk = b * h * w, k * k * cin
+    ops = 2.0 * m * cout * kk
+    fixed = (m * cout * torch.empty((), dtype=dt).element_size()
+             + args[1][:cout, :, :cin].numel() + 8 * cout)
+    t_ops = ops / PEAK_INT8_OPS_PER_S
+    t_bytes = (m * fn_cin + fixed) / PEAK_BYTES_PER_S
+    row = {"name": name, "shape": [b, h, w, cin, cout, k], "act": act,
+           "out": str(dt).split(".")[1], "bit_equal": True,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: CQ.conv_q(*args)),
+           "stream_ms": stream_ms(lambda: CQ.conv_q(*args)),
+           "plain_ms": cuda_ms(lambda: CQ.conv_q_plain(*args), reps=3,
+                               warmup=1),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ops": ops}
+    if fn_cin != cin:
+        row["patch_bound_ms"] = max(
+            t_ops, (m * cin + fixed) / PEAK_BYTES_PER_S) * 1e3
+    ck = cin if kk % 8 == 0 else args[0].shape[-1]
+    a_mat = im2col_s8(args[0], ck, k)
+    b_mat = args[1][:cout, :, :ck].reshape(cout, k * k * ck)  # K-major
+    try:
+        torch._int_mm(a_mat, b_mat.t())
+        row["library_ms"] = cuda_ms(lambda: torch._int_mm(a_mat, b_mat.t()))
+        row["library"] = "torch._int_mm [M,K] x [K,N] s8 (col-major B)"
+    except RuntimeError as e:
+        row["library_ms"] = None
+        row["library"] = f"torch._int_mm refused: {str(e)[:200]}"
+    del a_mat
+    row["tops"] = ops / (row["stream_ms"] * 1e-3) / 1e12
+    lib = row["library_ms"]
+    patch = (f"; {row['patch_bound_ms']:.4f} over the patch channels"
+             if "patch_bound_ms" in row else "")
+    log(f"  conv_q {name} {b}x{h}x{w} {cin}->{cout} k{k}: kernel "
+        f"{row['ms']:.4f} ms, back to back {row['stream_ms']:.4f} "
+        f"({row['tops']:.0f} TOP/s), plain {row['plain_ms']:.2f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}{patch}), _int_mm "
+        f"{'refused' if lib is None else f'{lib:.4f} ms'}")
+    return row
 
 
 def check_conv_q() -> list:
     """conv_q bit-equal to conv_q_plain at every distinct conv shape of
     both int8 CPMs (conv_shapes, B=2) and on ragged shapes (odd H and W,
-    B=1, channel tails), one launch a call; then timed at the dominant
-    shape (DOMINANT_CONV: the hand net's 7x7 128->128 convs at 20x20 over
-    the fused-160s5 step's 384 crops, 20 of its 159 convs a step), single
-    and back to back, beside the plain version, the bound and
-    ``torch._int_mm`` on the im2col'd operands (the GEMM alone, a floor
-    for later designs; not used by the port)."""
-    from islx_torch.ops import conv_q as CQ
-
+    B=1, channel tails), one launch a call; then bit-equal and timed at
+    each of TIMED_CONVS (the dominant one first)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
@@ -834,42 +906,10 @@ def check_conv_q() -> list:
         err = max(err, conv_q_bit_equal(conv_q_inputs(gen, *case)))
     log(f"  conv_q bit-equal, one launch a call: {len(cases)} shapes "
         f"({len(cases) - 6} of the int8 CPMs at B=2, 6 ragged)")
-    b, h, w, cin, cout, k, act, dt = DOMINANT_CONV
-    args = conv_q_inputs(gen, *DOMINANT_CONV)
-    err = max(err, conv_q_bit_equal(args))
-    m, kk = b * h * w, k * k * cin
-    ops = 2.0 * m * cout * kk
-    bytes_ = (args[0].numel() + args[1].numel() + m * cout
-              + 4 * 2 * cout)
-    t_ops, t_bytes = ops / PEAK_INT8_OPS_PER_S, bytes_ / PEAK_BYTES_PER_S
-    row = {"shape": [b, h, w, cin, cout, k], "act": act, "out": "int8",
-           "cases": len(cases) + 1, "bit_equal": True, "max_abs_err": err,
-           "ms": cuda_ms(lambda: CQ.conv_q(*args)),
-           "stream_ms": stream_ms(lambda: CQ.conv_q(*args)),
-           "plain_ms": cuda_ms(lambda: CQ.conv_q_plain(*args), reps=3,
-                               warmup=1),
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "ops": ops}
-    a_mat = im2col_s8(args[0], cin, k)
-    b_mat = args[1][:cout, :, :cin].reshape(cout, kk)     # [N,K]: K-major
-    try:
-        want = torch._int_mm(a_mat, b_mat.t())
-        row["library_ms"] = cuda_ms(lambda: torch._int_mm(a_mat, b_mat.t()))
-        row["library"] = "torch._int_mm [M,K] x [K,N] s8 (col-major B)"
-        del want
-    except RuntimeError as e:
-        row["library_ms"] = None
-        row["library"] = f"torch._int_mm refused: {str(e)[:200]}"
-    del a_mat
-    row["tops"] = ops / (row["stream_ms"] * 1e-3) / 1e12
-    lib = row["library_ms"]
-    log(f"  conv_q {b}x{h}x{w} {cin}->{cout} k{k}: kernel {row['ms']:.4f} "
-        f"ms, back to back {row['stream_ms']:.4f} ({row['tops']:.0f} "
-        f"TOP/s), plain {row['plain_ms']:.2f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), _int_mm "
-        f"{'refused' if lib is None else f'{lib:.4f} ms'}")
-    return [row]
+    rows = [time_conv_q(gen, *timed) for timed in TIMED_CONVS]
+    rows[0]["cases"] = len(cases) + len(rows)
+    rows[0]["max_abs_err"] = max(err, rows[0]["max_abs_err"])
+    return rows
 
 
 QUANTIZE_CASES = [((192, 23, 18, 384), torch.bfloat16),   # dense blocks
@@ -886,47 +926,63 @@ def check_quantize() -> list:
     at the int8 step's input shapes (QUANTIZE_CASES: C=384 bf16 is BODY_25's
     dense-block input, 90 of the step's 109 quantizations; the others its
     f32 stage and net inputs, and ragged ones), with .5 ties and values
-    past the int8 range; timed at each of the first four."""
+    past the int8 range, the 3-channel inputs also in patch mode (conv1_1's
+    3x3 patches); timed at each of the first four, and in patch mode at
+    the hand input (the main path's form of it)."""
     from islx_torch.ops import conv_q as CQ
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
-    for shape, dt in QUANTIZE_CASES:
+    for i, (shape, dt) in enumerate(QUANTIZE_CASES):
         x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dt)
         x.view(-1)[::97] = 2.5                      # a tie at inv = 1
+        patches = (0, 3) if shape[-1] == 3 else (0,)
         for inv in (1.0, 37.25, 127.0 / 3e-8):
-            before = CQ.quantize.launches
-            got = CQ.quantize(x, inv)
-            torch.cuda.synchronize()
-            want = CQ.quantize_plain(x, inv)
-            if not torch.equal(got, want) or (
-                    CQ.quantize.launches != before + 1):
-                raise SystemExit(
-                    f"quantize differs from its plain version at "
-                    f"{tuple(shape)} {dt}, inv {inv}: "
-                    f"{int((got != want).sum())} bytes apart, "
-                    f"{CQ.quantize.launches - before} launches")
-        if len(rows) == 4:
-            continue
-        # the function reads C channels and writes C int8 ones; the
-        # padded layout's extra writes (zeros past C) are the port's cost
-        read = x.numel() * x.element_size()
-        bytes_ = read + x.numel()
-        row = {"shape": list(shape), "dtype": str(dt).split(".")[1],
-               "bit_equal": True, "max_abs_err": 0,
-               "padded_bound_ms": (read + got.numel()) / PEAK_BYTES_PER_S
-               * 1e3,
-               "ms": cuda_ms(lambda: CQ.quantize(x, 37.25)),
-               "stream_ms": stream_ms(lambda: CQ.quantize(x, 37.25)),
-               "plain_ms": cuda_ms(lambda: CQ.quantize_plain(x, 37.25)),
-               "bound_ms": bytes_ / PEAK_BYTES_PER_S * 1e3,
-               "bound_by": "bytes", "library_ms": None}
-        rows.append(row)
-        log(f"  quantize {tuple(shape)} {row['dtype']}: bit-equal, kernel "
-            f"{row['ms']:.4f} ms, back to back {row['stream_ms']:.4f}, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"(bytes; {row['padded_bound_ms']:.4f} with the padded "
-            f"channels' writes)")
+            for patch in patches:
+                before = CQ.quantize.launches
+                got = CQ.quantize(x, inv, patch)
+                torch.cuda.synchronize()
+                want = CQ.quantize_plain(x, inv, patch)
+                if not torch.equal(got, want) or (
+                        CQ.quantize.launches != before + 1):
+                    raise SystemExit(
+                        f"quantize differs from its plain version at "
+                        f"{tuple(shape)} {dt} patch {patch}, inv {inv}: "
+                        f"{int((got != want).sum())} bytes apart, "
+                        f"{CQ.quantize.launches - before} launches")
+        timed = [0] if i < 4 else []
+        if shape == (384, 160, 160, 3):
+            timed.append(3)
+        for patch in timed:
+            # the function (quantize_act) reads C channels and writes C
+            # int8 ones, in patch mode too; the patches' k*k*C channels and
+            # the padded layout's zeros past them are the port's layout
+            read = x.numel() * x.element_size()
+            got = CQ.quantize(x, 37.25, patch)
+            row = {"shape": list(shape), "dtype": str(dt).split(".")[1],
+                   "patch": patch, "bit_equal": True, "max_abs_err": 0,
+                   "padded_bound_ms": (read + got.numel())
+                   / PEAK_BYTES_PER_S * 1e3,
+                   "ms": cuda_ms(lambda: CQ.quantize(x, 37.25, patch)),
+                   "stream_ms": stream_ms(
+                       lambda: CQ.quantize(x, 37.25, patch)),
+                   "plain_ms": cuda_ms(
+                       lambda: CQ.quantize_plain(x, 37.25, patch)),
+                   "bound_ms": (read + x.numel()) / PEAK_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None}
+            if patch:
+                row["patch_bound_ms"] = (read + x.numel() * patch ** 2
+                                         ) / PEAK_BYTES_PER_S * 1e3
+            rows.append(row)
+            log(f"  quantize {tuple(shape)} {row['dtype']}"
+                f"{' patch 3' if patch else ''}: bit-equal, kernel "
+                f"{row['ms']:.4f} ms, back to back {row['stream_ms']:.4f}, "
+                f"plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms (bytes; "
+                + (f"{row['patch_bound_ms']:.4f} writing the patches, "
+                   if patch else "")
+                + f"{row['padded_bound_ms']:.4f} with the padded channels' "
+                f"writes)")
     return rows
 
 
@@ -1024,7 +1080,7 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
             raise SystemExit(f"main path: {c.name} launched conv_q "
                              f"{CQ.conv_q.launches - before} times")
         for i in range(0, x_q.shape[0], chunk):
-            want = CQ.conv_q_plain(x_q[i:i + chunk], self.w_pack, c.cin,
+            want = CQ.conv_q_plain(x_q[i:i + chunk], self.w_pack, self.cin,
                                    self.scale, self.bias, self.slope, c.act,
                                    out.dtype, out_inv)
             got = out[i:i + chunk]
@@ -1033,8 +1089,9 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
             seen["max_abs_err"] = max(seen["max_abs_err"], float(
                 (got.float() - want.float()).abs().max()))
         seen["convs"] += 1
-        seen["shapes"].add((x_q.shape[0], x_q.shape[1], x_q.shape[2], c.cin,
-                            c.cout, c.k, str(out.dtype).split(".")[1]))
+        seen["shapes"].add((x_q.shape[0], x_q.shape[1], x_q.shape[2],
+                            self.cin, c.cout, 1 if self.patch else c.k,
+                            str(out.dtype).split(".")[1]))
         return out
 
     def watched_quantize(self, x):
@@ -1046,7 +1103,7 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
                              f"times")
         for i in range(0, x.shape[0], chunk):
             want = CQ.quantize_plain(x[i:i + chunk].permute(0, 2, 3, 1),
-                                     self.inv)
+                                     self.inv, self.patch)
             if not torch.equal(out[i:i + chunk], want):
                 fail("quantize", self.spec.name, x)
         seen["quantizes"] += 1
@@ -1150,6 +1207,44 @@ def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
         f"{launches}/{steps}, conv_q launches {conv_launches}/{steps}, "
         f"quantize launches {quant_launches}/{steps}")
     return res, pipe, packed
+
+
+def crops_match_cpu(pipe, host, b, hb, wb, boxes) -> dict:
+    """The hand crops of a full-width step, cut on the card from the step's
+    own decoded frames, word-equal to the same function on the CPU, before
+    and after the rounding: at the step's hand boxes where there are any,
+    else (random weights give none) at seeded boxes over the frames, some
+    at their borders, at the step's crop count and size. Then timed."""
+    from islx_torch.ops.resize import dynamic_crop_resize_batch
+    from islx_torch.ops.yuv import yuv420_to_bgr
+
+    size = int(np.rint(pipe.hand.cfg.scale_search[0] * pipe.hand.cfg.boxsize))
+    frames = yuv420_to_bgr(pipe.upload_frames(host), b, hb, wb)
+    rng = np.random.RandomState(7)
+    n = len(boxes)
+    side = rng.randint(1, hb + 1, n)
+    seeded = np.stack([rng.randint(0, b, n), rng.randint(0, wb, n),
+                       rng.randint(0, hb, n), side], 1)
+    seeded[::7, 1:3] = 0                              # clamped at a corner
+    use = np.where((boxes[:, 3] > 0)[:, None], boxes, seeded).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(use[:, i]))
+            for i in range(4)]
+    cpu_frames = frames.cpu()
+    for saturate in (False, True):
+        got = dynamic_crop_resize_batch(frames, *(a.cuda() for a in args),
+                                        size, saturate).cpu()
+        want = dynamic_crop_resize_batch(cpu_frames, *args, size, saturate)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"crops at {size} px: {int((got != want).sum())}"
+                             f" of {got.numel()} words differ from the CPU "
+                             f"function's (saturate_uint8={saturate})")
+    dev_args = [a.cuda() for a in args]
+    ms = cuda_ms(lambda: dynamic_crop_resize_batch(frames, *dev_args, size),
+                 reps=5, warmup=1)
+    log(f"  crops {n}x{size}px from the step's frames: card == CPU, word for "
+        f"word ({int((boxes[:, 3] > 0).sum())} of the step's boxes, the rest"
+        f" seeded); {ms:.3f} ms on the card")
+    return {"crops": n, "size": size, "word_equal": True, "ms": ms}
 
 
 def integer_planes(pipe, packed, b) -> dict:
@@ -1256,7 +1351,8 @@ def profile_step(hand_cfg, b=192, orig_hw=(512, 384), steps=3,
 
 def small_reference_check(int8: bool = False) -> None:
     """The card's f32 fused step == the plain CPU path on a small input:
-    peak, pair, box and hand-peak tables equal, scores within f16. With
+    peak, pair, box and hand-peak tables equal (no allowance: the crop
+    resize sums alike on both devices), scores within f16. With
     ``int8``, both run the same int8 W8A8 states, calibrated on the CPU on
     the input's frames (the int8 CPMs are exact on both devices)."""
     from islx_torch.cli import quantize_states
@@ -1292,12 +1388,9 @@ def small_reference_check(int8: bool = False) -> None:
             raise SystemExit(f"small check: {name} differs from the CPU path")
     if not np.array_equal(xw, xg):
         raise SystemExit(f"small check: hand boxes differ:\n{xw}\n{xg}")
-    # Hand crops are rounded to integers after a cubic-resize contraction
-    # that cuBLAS and the CPU BLAS sum in different orders, so a crop pixel
-    # sitting at .5 can round apart and nudge a near-threshold hand part;
-    # at most 1 in 20 (crop, part) entries may differ.
-    same = float((pw == pg).all(-1).mean())
-    if same < 0.95:
+    # the crop resize sums in the same order on both devices, so the hand
+    # peaks are equal too
+    if not np.array_equal(pw, pg):
         bad = np.nonzero((pw != pg).any(-1))
         raise SystemExit(f"small check: hand peaks differ at {bad}: "
                          f"{pw[bad].tolist()} vs {pg[bad].tolist()}")
@@ -1308,8 +1401,8 @@ def small_reference_check(int8: bool = False) -> None:
     log(f"  small f32{' int8' if int8 else ''} step on the card vs CPU "
         f"plain path: body tables and "
         f"hand boxes equal ({int(tw[2].sum())} peaks, "
-        f"{int((xw[:, 3] > 0).sum())} hand boxes), hand peaks equal "
-        f"{same:.3f}, score max abs diff {err:.2e}, words equal "
+        f"{int((xw[:, 3] > 0).sum())} hand boxes), hand peaks equal, "
+        f"score max abs diff {err:.2e}, words equal "
         f"{int((want == got).sum())}/{want.size}")
 
 
@@ -1618,8 +1711,15 @@ def main(argv=None) -> int:
 
     log("[4] fused pose step, full width, bf16")
     log(f"    hand config: {note}")
-    step184, _, packed_mask = fused_step(hand_cfg)
-    step160 = fused_step(hand_160)[0]
+    step184, pipe184, packed_mask = fused_step(hand_cfg)
+    step160, pipe160, packed160 = fused_step(hand_160)
+    for step, p, packed in ((step184, pipe184, packed_mask),
+                            (step160, pipe160, packed160)):
+        hb, wb = step["bucket"]
+        step["crops"] = crops_match_cpu(
+            p, seeded_i420(np.random.RandomState(0), 192, hb, wb), 192, hb,
+            wb, p.unpack(packed, 192)[1])
+    del pipe184, pipe160
     small_reference_check()
 
     log("[4c] fused pose step, full width, int8 W8A8 CPMs (160 px, 5 "

@@ -47,6 +47,15 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a*b + c`` with one rounding, as XLA's CPU program contracts a
+    multiply-add: the f32 product is exact in f64 and the sum rounds twice
+    (f64, then f32) only where the f64 sum is inexact and lands on an f32
+    halfway point. One f64 ``addcmul``, whether or not it fuses: the
+    product it would round is exact."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
 @contextlib.contextmanager
 def true_f32():
     """Float32 convolutions and matmuls in full f32 inside the block.

@@ -1,4 +1,4 @@
-"""CPM weights for the port: carried across from islx, loaded, or made.
+"""CPM weights for the port: carried across out of islx, loaded, or made.
 
 The port's weight state is ``{caffe_layer: {"w" OIHW, "b"[, "p"]}}`` of f32
 CPU tensors; :meth:`islx_torch.models.cpm.CPM.load_params` takes it. An

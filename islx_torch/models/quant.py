@@ -91,7 +91,15 @@ class QConvLayer(nn.Module):
     (:func:`islx_torch.ops.conv_q.pack_weights`), and per output channel
     the epilogue's f32
     ``scale``, ``bias`` and PReLU ``slope``. ``a_scale`` is the input's
-    scale and ``inv`` its quantize factor."""
+    scale and ``inv`` its quantize factor.
+
+    A conv whose k x k x cin neighbourhood fits one K step of the kernel
+    (conv1_1 of both nets, 3x3x3) runs in patch mode
+    (:func:`islx_torch.ops.conv_q.patch_k`): its input is quantized into
+    [B,H,W,32] patches and its weights are packed as a 1x1 conv over the
+    k*k*cin patch channels, in the same (ky, kx, c) order. The int32 sums
+    are the same exact sums, so the words do not change. ``cin`` is the
+    channel count the kernel sees (27 there), ``patch`` the k (else 0)."""
 
     def __init__(self, c, entry: Dict[str, torch.Tensor]):
         super().__init__()
@@ -103,6 +111,10 @@ class QConvLayer(nn.Module):
         a_scale = np.float32(entry["a_scale"])
         self.a_scale = float(a_scale)
         self.inv = act_inv(a_scale)
+        self.patch = CQ.patch_k(c.cin, c.k)
+        self.cin = c.k * c.k * c.cin if self.patch else c.cin
+        if self.patch:                    # a 1x1 conv over (ky, kx, c)
+            w_q = w_q.permute(0, 2, 3, 1).reshape(c.cout, self.cin, 1, 1)
         self.register_buffer("w_pack", CQ.pack_weights(w_q))
         self.register_buffer("scale", torch.from_numpy(epilogue_scale(
             entry["s_w"].numpy(), a_scale)))
@@ -113,8 +125,9 @@ class QConvLayer(nn.Module):
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """A float NCHW input (any memory format) -> int8 NHWC at this
         layer's scale (:func:`quantize_act`), its channel stride padded
-        for the kernel (:func:`islx_torch.ops.conv_q.quantize`)."""
-        return CQ.quantize(x.permute(0, 2, 3, 1), self.inv)
+        for the kernel, or its patches in patch mode
+        (:func:`islx_torch.ops.conv_q.quantize`)."""
+        return CQ.quantize(x.permute(0, 2, 3, 1), self.inv, self.patch)
 
     def core(self, x_q: torch.Tensor, compute_dtype: torch.dtype,
              out_inv: Optional[float] = None) -> torch.Tensor:
@@ -122,11 +135,14 @@ class QConvLayer(nn.Module):
         ``out_inv`` (127 / the next conv's a_scale: chained), else f32 for
         a head conv and the compute dtype otherwise."""
         c = self.spec
+        if self.patch and x_q.shape[-1] != CQ.channel_stride(self.cin):
+            raise ValueError(f"{c.name}: a patch-mode conv takes its own "
+                             f"quantize's patches, got {tuple(x_q.shape)}")
         if out_inv is not None:
             dt = torch.int8
         else:
             dt = torch.float32 if c.head else compute_dtype
-        return CQ.conv_q(x_q, self.w_pack, c.cin, self.scale, self.bias,
+        return CQ.conv_q(x_q, self.w_pack, self.cin, self.scale, self.bias,
                          self.slope, c.act, dt, out_inv)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype

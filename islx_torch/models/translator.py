@@ -142,7 +142,7 @@ class TranslatorHead(nn.Module):
 
 def build_head(params: Optional[Params], device,
                cfg: TranslatorConfig = TranslatorConfig()) -> TranslatorHead:
-    """The head on ``device`` from islx-layout numpy params (seeded init
-    when None)."""
+    """The head on ``device`` built of numpy params in islx's layout
+    (seeded init when None)."""
     return TranslatorHead(params if params is not None
                           else init_params(cfg)).to(device).eval()

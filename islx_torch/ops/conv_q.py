@@ -5,10 +5,11 @@ activation quantization of its unchained inputs.
 conv_q_core``, which XLA ran on the TPU (``lax.conv_general_dilated`` with
 int32 accumulation; no Pallas kernel backs it). Stock PyTorch has no CUDA
 int8 convolution, so on a CUDA tensor it launches the hand-written
-implicit-GEMM kernel in ``islx_torch/csrc/conv_q.cu``; on a CPU tensor it
-runs :func:`conv_q_plain`, the plain PyTorch version of the same function.
-There is no fallback between the two: a CUDA tensor the kernel cannot take
-raises.
+implicit-GEMM kernel in ``islx_torch/csrc/conv_q.cu`` (``wgmma`` on tiles
+that TMA brings in, the activations through its im2col mode); on a CPU
+tensor it runs :func:`conv_q_plain`, the plain PyTorch version of the same
+function. There is no fallback between the two: a CUDA tensor the kernel
+cannot take raises.
 
 The function: NHWC int8 activations x int8 weights, k x k with pad (k-1)/2
 and stride 1, summed exactly in int32, then per output channel c
@@ -29,7 +30,10 @@ packed once by :func:`pack_weights`; the plain version reads them back OIHW
 on the TPU), ``clip(rint(x * inv), +-127)`` with the product rounded once
 in f32, written at the padded channel stride (zeros past ``cin``) by one
 kernel (``islx_quantize`` in the same source) on a CUDA tensor, or by
-:func:`quantize_plain` on a CPU tensor.
+:func:`quantize_plain` on a CPU tensor. In patch mode (:func:`patch_k`:
+conv1_1, 3x3 over 3 channels) it writes each pixel's quantized 3x3
+neighbourhood instead, and the conv runs as a 1x1 conv over those 27
+channels: one K step in place of nine.
 """
 from __future__ import annotations
 
@@ -40,14 +44,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from islx_torch.core.runtime import fma_rn
 from islx_torch.ops import _build
-from islx_torch.ops.paf_sample import _fma
 
 ACTS = {"none": 0, "relu": 1, "prelu": 2}
 OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-PACK_N = 128        # the packed weights' cout padding: a block's channels
-K_CHUNK = 32        # input channels a step of the K loop (mma k32)
-CHANNEL_ALIGN = 16  # the input's channel stride: 16-byte cp.async rows
+PACK_N = 128        # the packed weights' cout padding: the widest N tile
+K_CHUNK = 32        # the packed weights' cin padding: wgmma's k32
+CHANNEL_ALIGN = 16  # the input's channel stride: TMA's 16-byte strides
 # |sum| <= 127 * 127 * k * k * cin must stay below 2^31 (int32 sums)
 MAX_K = (2 ** 31 - 1) // (127 * 127)
 
@@ -82,7 +86,7 @@ def epilogue(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """The epilogue on exact integer sums ``y`` [..., cout] (any dtype that
     holds them): ``fma(f32(y), scale, bias)`` with one rounding, the
     activation, then the output conversion."""
-    o = _fma(y.float(), scale, bias)
+    o = fma_rn(y.float(), scale, bias)
     if act == "relu":
         o = torch.relu(o)
     elif act == "prelu":
@@ -113,14 +117,35 @@ def conv_q_plain(x_q: torch.Tensor, w_pack: torch.Tensor, cin: int,
                     out_dtype, out_inv).contiguous()
 
 
-def quantize_plain(x: torch.Tensor, inv: float) -> torch.Tensor:
+def patch_k(cin: int, k: int) -> int:
+    """The patch mode of a k x k conv over ``cin`` channels: 3 for a 3x3
+    conv over 3 channels (conv1_1 of both nets), whose 27-value
+    neighbourhood fits one 32-channel K step, else 0. Such a conv runs as a
+    1x1 conv over :func:`quantize`'s patches: one K step, not nine."""
+    return 3 if k == 3 and cin == 3 else 0
+
+
+def quantize_plain(x: torch.Tensor, inv: float, patch: int = 0
+                   ) -> torch.Tensor:
     """x [..., C] float (f32 or bf16) -> int8 [..., channel_stride(C)]:
     ``clip(rint(x * inv), +-127)``, the product in f32 rounded half to
-    even, zeros in the padding channels."""
-    c = x.shape[-1]
-    out = torch.zeros(x.shape[:-1] + (channel_stride(c),), dtype=torch.int8,
+    even, zeros in the padding channels.
+
+    With ``patch`` k (x [B,H,W,C]): each pixel's k x k neighbourhood of
+    quantized values in (ky, kx, c) order, zero outside the frame, ->
+    [B,H,W,channel_stride(k*k*C)], the input of the conv as a 1x1 conv
+    over k*k*C channels (:func:`patch_k`)."""
+    q = torch.round(x.float() * inv).clamp_(-127, 127)
+    if patch:
+        b, h, w, _ = q.shape
+        p = (patch - 1) // 2
+        qp = F.pad(q, (0, 0, p, p, p, p))
+        q = torch.cat([qp[:, ky:ky + h, kx:kx + w]
+                       for ky in range(patch) for kx in range(patch)], -1)
+    c = q.shape[-1]
+    out = torch.zeros(q.shape[:-1] + (channel_stride(c),), dtype=torch.int8,
                       device=x.device)
-    out[..., :c] = torch.round(x.float() * inv).clamp_(-127, 127)
+    out[..., :c] = q
     return out
 
 
@@ -129,34 +154,40 @@ def _quantize_kernel():
     lib = _build.load("conv_q")
     fn = lib.islx_quantize
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def quantize(x: torch.Tensor, inv: float) -> torch.Tensor:
-    """x [..., C] f32 or bf16 -> int8 [..., channel_stride(C)], the input
-    of :func:`conv_q` (see :func:`quantize_plain`).
+def quantize(x: torch.Tensor, inv: float, patch: int = 0) -> torch.Tensor:
+    """x [..., C] f32 or bf16 -> int8 [..., channel_stride(C)], or with
+    ``patch`` k (x [B,H,W,C]) the k x k patches [B,H,W,channel_stride(k*k*C)],
+    the input of :func:`conv_q` (see :func:`quantize_plain`).
 
     A CUDA tensor goes through the sm_90a kernel on the current stream
     (``quantize.launches`` counts the launches), in its NHWC order made
     contiguous; a CPU tensor through :func:`quantize_plain`."""
     if x.device.type == "cpu":
-        return quantize_plain(x, inv)
+        return quantize_plain(x, inv, patch)
     if x.device.type != "cuda":
         raise ValueError(f"quantize: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize: need float32 or bfloat16, got {x.dtype}")
+    if patch and (x.dim() != 4 or patch != 3 or x.shape[-1] != 3):
+        raise ValueError(f"quantize: the kernel's patch mode takes a 3x3 "
+                         f"neighbourhood of [B,H,W,3], got patch "
+                         f"{patch}, {tuple(x.shape)}")
     x = x.contiguous()
     c = x.shape[-1]
-    out = torch.empty(x.shape[:-1] + (channel_stride(c),),
-                      dtype=torch.int8, device=x.device)
+    h, w = (x.shape[1], x.shape[2]) if patch else (1, 1)
+    out = torch.empty(x.shape[:-1] + (channel_stride(
+        c * max(patch, 1) ** 2),), dtype=torch.int8, device=x.device)
     m = x.numel() // c if c else 0
     if m == 0:
         return out
     _build.launch("quantize", _quantize_kernel(), x.device, x.data_ptr(),
                   out.data_ptr(), m, c, out.shape[-1],
-                  int(x.dtype == torch.bfloat16), inv)
+                  int(x.dtype == torch.bfloat16), h, w, max(patch, 1), inv)
     quantize.launches += 1
     return out
 

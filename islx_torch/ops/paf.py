@@ -20,9 +20,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from islx_torch.core.runtime import div, rdiv, sqrt_rn
-from islx_torch.ops.paf_sample import (LimbTable, _fma, _inv_mid,
-                                       _samples_t, paf_sample)
+from islx_torch.core.runtime import div, fma_rn, rdiv, sqrt_rn
+from islx_torch.ops.paf_sample import (LimbTable, _inv_mid, _samples_t,
+                                       paf_sample)
 
 # Limb connection tables (reference: src/body.py:109-126).
 LIMB_SEQ_BODY25 = np.array(
@@ -96,8 +96,8 @@ def _pair_samples8(peaks_xy: torch.Tensor, peaks_valid: torch.Tensor,
     norm = torch.clamp_min(sqrt_rn((vec * vec).sum(-1)), 0.001)
     unit = vec / norm[..., None]
     t = _samples_t(mid_num, peaks_xy.device)
-    pts = _fma(vec[:, :, :, None, :], t[None, None, None, :, None],
-               a_xy[:, :, None, None, :])
+    pts = fma_rn(vec[:, :, :, None, :], t[None, None, None, :, None],
+                 a_xy[:, :, None, None, :])
     cx = torch.clamp(torch.round(div(pts[..., 0] + 0.5, stride) - 0.5),
                      0, w8 - 1).long()
     cy = torch.clamp(torch.round(div(pts[..., 1] + 0.5, stride) - 0.5),
@@ -135,8 +135,9 @@ def score_limbs_cell(paf8: torch.Tensor, peaks_xy: torch.Tensor,
         hits = torch.where(s_cell > thre2, count,
                            torch.zeros_like(count)).sum(-1)
         prior = torch.clamp_max(rdiv(0.5 * orig_h, norm) - 1.0, 0.0)
-        swdp = _fma(score_sum, torch.full_like(score_sum, _inv_mid(mid_num)),
-                    prior.reshape(bsz, k * k))
+        swdp = fma_rn(score_sum,
+                      torch.full_like(score_sum, _inv_mid(mid_num)),
+                      prior.reshape(bsz, k * k))
         ok = (hits > 0.8 * mid_num) & (swdp > 0) & valid.reshape(bsz, k * k)
         swdps.append(swdp.reshape(bsz, k, k))
         oks.append(ok.reshape(bsz, k, k))

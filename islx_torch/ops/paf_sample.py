@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from islx_torch.core.runtime import rdiv, sqrt_rn
+from islx_torch.core.runtime import fma_rn, rdiv, sqrt_rn
 from islx_torch.ops import _build
 
 
@@ -111,13 +111,6 @@ def sum_plan(mid_num: int) -> Tuple[int, int]:
     return SUM_LANES.get(mid_num, (1, 0))
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a*b + c`` with one rounding: the f32 product is exact in f64
-    and the sum rounds twice (f64, then f32) only where the f64 sum is
-    inexact and lands on an f32 halfway point."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def paf_sample_plain(paf: torch.Tensor, peaks_xy: torch.Tensor,
                      peaks_valid: torch.Tensor, limbs: LimbTable,
                      thre2: float = 0.05, mid_num: int = 10,
@@ -155,28 +148,28 @@ def paf_sample_terms(paf: torch.Tensor, peaks_xy: torch.Tensor,
     norm = torch.clamp_min(sqrt_rn(vx * vx + vy * vy), 0.001)
     ux, uy = vx / norm, vy / norm
     t = _samples_t(mid_num, paf.device)
-    px = _fma(vx[..., None], t, a[:, :, None, None, 0])   # [L,K,K,mid]
-    py = _fma(vy[..., None], t, a[:, :, None, None, 1])
+    px = fma_rn(vx[..., None], t, a[:, :, None, None, 0])   # [L,K,K,mid]
+    py = fma_rn(vy[..., None], t, a[:, :, None, None, 1])
     xi = torch.clamp(torch.round(px).long(), 0, w - 1)
     yi = torch.clamp(torch.round(py).long(), 0, h - 1)
     sx = paf[yi, xi, tab[:, 2, None, None, None]]
     sy = paf[yi, xi, tab[:, 3, None, None, None]]
     ux_, uy_ = ux[..., None], uy[..., None]
-    score_mid = _fma(sy, uy_, sx * ux_)
+    score_mid = fma_rn(sy, uy_, sx * ux_)
     vf, vec = sum_plan(mid_num)
     lanes = [torch.full_like(norm, -0.0 if j else 0.0) for j in range(vf)]
     for m in range(vec):
-        lanes[m % vf] = _fma(sy[..., m], uy, _fma(sx[..., m], ux,
-                                                  lanes[m % vf]))
+        lanes[m % vf] = fma_rn(sy[..., m], uy, fma_rn(sx[..., m], ux,
+                                                    lanes[m % vf]))
     while len(lanes) > 1:
         half = len(lanes) // 2
         lanes = [lanes[j] + lanes[j + half] for j in range(half)]
     total = lanes[0]
     for m in range(vec, mid_num):
-        total = _fma(sy[..., m], uy, _fma(sx[..., m], ux, total))
+        total = fma_rn(sy[..., m], uy, fma_rn(sx[..., m], ux, total))
     prior = torch.clamp_max(rdiv(0.5 * float(np.float32(orig_h)), norm) - 1.0,
                             0.0)
-    score = _fma(total, torch.full_like(total, _inv_mid(mid_num)), prior)
+    score = fma_rn(total, torch.full_like(total, _inv_mid(mid_num)), prior)
     crit1 = (score_mid > float(np.float32(thre2))).sum(-1) > 0.8 * mid_num
     valid = peaks_valid.bool()
     ok = (crit1 & (score > 0) & valid[tab[:, 0]][:, :, None]

@@ -87,7 +87,7 @@ class Body:
         if model_type != "body25":
             raise NotImplementedError(
                 "model 'coco': coco_forward is not ported yet "
-                "(ROADMAP.md §1 item 1)")
+                "(ROADMAP.md §1 item 7)")
         if weights is None:
             weights = W.init_params(model_type)
         elif isinstance(weights, str):

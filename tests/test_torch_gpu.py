@@ -253,15 +253,20 @@ def test_new_kernels_refuse_what_they_cannot_take():
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,cin,cout", [(1, 128, 22), (3, 3, 64),
                                         (3, 288, 96), (7, 150, 128),
-                                        (7, 206, 52)])
+                                        (7, 206, 52), (1, 27, 26),
+                                        (3, 64, 128), (3, 180, 96),
+                                        (7, 128, 128), (3, 512, 512),
+                                        (1, 512, 26), (3, 100, 22)])
 @pytest.mark.parametrize("act", ["relu", "prelu", "none"])
 @pytest.mark.parametrize("out", ["float32", "bfloat16", "int8"])
 def test_conv_q_bit_equal_on_card(k, cin, cout, act, out):
     """The int8 implicit-GEMM kernel == conv_q_plain, word for word, one
-    launch a call: k 1, 3 and 7 with channel tails (cin 3, 150, 206; cout
-    22, 52), each activation and output conversion, on a ragged map (odd
-    H and W, pixels not a multiple of the block's 128) whose 7x7 halo
-    covers most of it."""
+    launch a call: k 1, 3 and 7; cin 3, 27 (conv1_1's patches), 64, 128,
+    150, 180, 512 and ragged ones (100, 206, 288: each tap's last K step 32,
+    64 or 128 channels wide); cout 22, 26, 52, 96, 128 and 512 (each wgmma
+    width, and the grid over N); each activation and output conversion, on
+    a ragged map (odd H and W, pixels not a multiple of the tile's 128)
+    whose 7x7 halo covers most of it."""
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(k * 7 + cin)
     conv_q_bit_equal(conv_q_inputs(gen, 3, 9, 13, cin, cout, k, act,
@@ -269,9 +274,39 @@ def test_conv_q_bit_equal_on_card(k, cin, cout, act, out):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", [(2, 23, 18), (1, 1, 1), (5, 3, 37)])
+def test_conv_q_patch_path_bit_equal_on_card(b, h, w):
+    """conv1_1 in patch mode on the card: the quantize kernel's 3x3x3
+    patches byte-equal to quantize_plain's, and conv_q over them (a 1x1
+    conv over 27 channels) word-equal to conv_q_plain and to the plain 3x3
+    conv over the plain quantized input; one launch each."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(b * h * w)
+    x = torch.randn(b, h, w, 3, generator=gen, device="cuda") * 2
+    inv = 127.0 / 5.0
+    before = CQ.quantize.launches
+    patches = CQ.quantize(x, inv, patch=3)
+    torch.cuda.synchronize()
+    assert CQ.quantize.launches == before + 1
+    assert torch.equal(patches, CQ.quantize_plain(x, inv, patch=3))
+    assert patches.shape == (b, h, w, 32) and not patches[..., 27:].any()
+    w_q = torch.randint(-127, 128, (64, 3, 3, 3), generator=gen,
+                        device="cuda", dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(64, generator=gen, device="cuda") * 1e-4
+    bias = torch.randn(64, generator=gen, device="cuda")
+    w1 = CQ.pack_weights(w_q.permute(0, 2, 3, 1).reshape(64, 27, 1, 1))
+    args = (patches, w1, 27, scale, bias, None, "relu", torch.int8, 30.0)
+    conv_q_bit_equal(args)
+    direct = CQ.conv_q_plain(CQ.quantize_plain(x, inv), CQ.pack_weights(w_q),
+                             3, scale, bias, None, "relu", torch.int8, 30.0)
+    assert torch.equal(CQ.conv_q(*args), direct)
+
+
+@pytest.mark.gpu
 def test_conv_q_refuses_what_it_cannot_take():
-    """A CUDA input the kernel does not take raises; nothing falls back
-    to the plain version."""
+    """A CUDA input the kernel does not take raises, and so does a patch
+    mode the quantize kernel does not take; nothing falls back to the plain
+    version, and no refused call counts a launch."""
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(0)
     x, w_pack, cin, scale, bias, slope, act, dt, oi = conv_q_inputs(
@@ -295,6 +330,13 @@ def test_conv_q_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):
         CQ.conv_q(x, w_pack, cin, scale.cpu(), bias, slope, act, dt)
     assert CQ.conv_q.launches == before
+    before = CQ.quantize.launches
+    f = torch.rand(2, 5, 5, 4, device="cuda")
+    for xx, patch in ((f, 3), (f[..., :2], 3), (f[..., :3], 5),
+                      (f[0, ..., :3], 3)):
+        with pytest.raises(ValueError):          # patches of 4 or 2 channels,
+            CQ.quantize(xx, 1.0, patch)          # a 5x5 patch, not 4-D
+    assert CQ.quantize.launches == before
 
 
 @pytest.mark.gpu
@@ -305,7 +347,8 @@ def test_conv_q_refuses_what_it_cannot_take():
 def test_quantize_bit_equal_on_card(shape, dtype):
     """The quantize kernel == quantize_plain, byte for byte (the padding
     channels zero), one launch a call, on an NHWC view of a channels_last
-    tensor and on a contiguous one, with .5 ties and out-of-range values."""
+    tensor and on a contiguous one, with .5 ties and out-of-range values;
+    3-channel inputs also in patch mode (3x3 patches)."""
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(shape[-1])
     x = (torch.randn(shape, generator=gen, device="cuda") * 200).to(
@@ -313,10 +356,12 @@ def test_quantize_bit_equal_on_card(shape, dtype):
     x.view(-1)[::5] = 2.5
     nchw = x.permute(0, 3, 1, 2).contiguous(
         memory_format=torch.channels_last)
+    patch = 3 if shape[-1] == 3 else 0
     for inp in (x, nchw.permute(0, 2, 3, 1)):
         for inv in (1.0, 0.37, 127.0 / 3e-8):
-            before = CQ.quantize.launches
-            got = CQ.quantize(inp, inv)
-            torch.cuda.synchronize()
-            assert CQ.quantize.launches == before + 1
-            assert torch.equal(got, CQ.quantize_plain(inp, inv))
+            for p in {0, patch}:
+                before = CQ.quantize.launches
+                got = CQ.quantize(inp, inv, p)
+                torch.cuda.synchronize()
+                assert CQ.quantize.launches == before + 1
+                assert torch.equal(got, CQ.quantize_plain(inp, inv, p))

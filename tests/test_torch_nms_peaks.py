@@ -60,7 +60,8 @@ def test_gaussian_blur_f32(rng):
 
 
 def test_dynamic_crop_resize_batch_exact(rng):
-    """Crops after rint/clip: exactly equal, boxes at the frame edge too."""
+    """Crops after rint/clip: exactly equal to islx's jitted crops (as its
+    fused step computes them), boxes at the frame edge too."""
     b, h, w = 2, 40, 56
     frames = (rng.rand(b, h, w, 3) * 255).astype(np.uint8)
     # (frame, x0, y0, w): interior, top-left corner, right/bottom edge,
@@ -68,7 +69,8 @@ def test_dynamic_crop_resize_batch_exact(rng):
     boxes = np.array([[0, 5, 7, 20], [1, 0, 0, 13], [0, 40, 24, 16],
                       [1, 55, 39, 1], [1, 30, 20, 33]], np.int32)
     for size in (46, 92):
-        want = np.asarray(JR.dynamic_crop_resize_batch(
+        want = np.asarray(jax.jit(JR.dynamic_crop_resize_batch,
+                                  static_argnums=5)(
             jnp.asarray(frames), *[jnp.asarray(boxes[:, i]) for i in range(4)],
             size))
         got = TR.dynamic_crop_resize_batch(

@@ -163,6 +163,75 @@ def test_conv_q_core_words_equal(k, act, out):
     np.testing.assert_array_equal(q[..., :26].numpy(), x_q)
 
 
+@pytest.mark.parametrize("mt", ["body25", "hand"])
+@pytest.mark.parametrize("out", ["f32", "bf16", "int8"])
+def test_patch_conv1_1_words_equal(quantized, mt, out):
+    """conv1_1 of both nets (3x3 over 3 channels) in patch mode: the
+    quantized 3x3x3 neighbourhoods ([B,H,W,32], zero outside the frame
+    and in channels 27-31) through the weights packed as a 1x1 conv over 27
+    inputs == islx's jitted conv_q_core on its quantize_act, word for word,
+    in f32 (as a head), bf16 and int8 (chained) outputs, on an odd map."""
+    qp = quantized[mt]["conv1_1"]
+    c = JC.Conv("conv1_1", 3, 64, 3, 1, "relu", head=(out == "f32"))
+    layer = TQ.QConvLayer(TC.Conv("conv1_1", 3, 64, 3, 1, "relu",
+                                  head=(out == "f32")),
+                          W.from_islx_params({"conv1_1": qp})["conv1_1"])
+    assert layer.patch == 3 and layer.cin == 27
+    assert tuple(layer.w_pack.shape) == (128, 1, 32)
+    x = (np.random.RandomState(7).rand(2, 29, 37, 3) - 0.5).astype(
+        np.float32)
+    pj = {n: jnp.asarray(v) for n, v in qp.items()}
+    x_q = np.asarray(jax.jit(JQ.quantize_act)(jnp.asarray(x),
+                                              pj["a_scale"]))
+    patches = layer.quantize(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert patches.shape == (2, 29, 37, 32) and patches.dtype == torch.int8
+    pad = np.pad(x_q, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want_p = np.concatenate([pad[:, ky:ky + 29, kx:kx + 37]
+                             for ky in range(3) for kx in range(3)], -1)
+    np.testing.assert_array_equal(patches[..., :27].numpy(), want_p)
+    assert not patches[..., 27:].any()
+    nxt = np.float32(1.7)
+    if out == "int8":
+        want = jax.jit(lambda xq, p, s: JQ.conv_q_core(
+            xq, p, c, jnp.bfloat16, out_inv=127.0 / s))(
+                jnp.asarray(x_q), pj, jnp.asarray(nxt))
+        got = layer.core(patches, torch.bfloat16, out_inv=TQ.act_inv(nxt))
+    else:
+        want = jax.jit(lambda xq, p: JQ.conv_q_core(xq, p, c, jnp.bfloat16))(
+            jnp.asarray(x_q), pj)
+        got = layer.core(patches, torch.bfloat16)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 29, 37, 64)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_array_equal(_words(_tnp(got)), _words(want))
+    with pytest.raises(ValueError):         # a chained int8 input
+        layer.core(torch.zeros(2, 29, 37, 64, dtype=torch.int8),
+                   torch.bfloat16)
+
+
+@pytest.mark.parametrize("mt,size", [("hand", (37, 29)),
+                                     ("body25", (43, 35))])
+def test_int8_forwards_word_equal_with_patch_path(quantized, mt, size):
+    """The int8 forwards with conv1_1 in patch mode, on maps of odd sizes
+    (the patches' zero border on every side of the frame): every output
+    word equal to islx's jitted forward, in bf16 compute."""
+    x = (np.random.RandomState(8).rand(1, *size, 3) - 0.5).astype(
+        np.float32)
+    kw = {"stages": 2} if mt == "hand" else {}
+    want = jax.jit(lambda p, v: JC.FORWARDS[mt](p, v, jnp.bfloat16, **kw))(
+        quantized[mt], jnp.asarray(x))
+    net = W.build(mt, W.from_islx_params(quantized[mt]), torch.device("cpu"),
+                  torch.bfloat16)
+    assert net.layers["conv1_1"].patch == 3
+    with torch.inference_mode():
+        got = net(torch.from_numpy(x), torch.bfloat16, **kw)
+    if mt == "hand":
+        want, got = [want], [got]
+    for wv, gv in zip(want, got):
+        assert gv.shape == wv.shape
+        np.testing.assert_array_equal(_words(gv.numpy()), _words(wv))
+
+
 @pytest.mark.parametrize("mt,size,percentile", [("hand", 40, None),
                                                 ("body25", 48, None),
                                                 ("hand", 40, 99.0)])

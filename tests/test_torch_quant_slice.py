@@ -8,19 +8,11 @@ raised, f32 compute. islx's ``quantize_model`` calibrates both nets on the
 frames and the quantized params are carried across, so both packages run
 the very same int8 weights and scales.
 
-The hand crops' cubic resize rounds to integers after an f32 contraction
-that XLA's CPU program and PyTorch's CPU einsum sum in different orders, so
-a crop value that lands near .5 can round apart (ROADMAP.md section 3,
-open); the int8 hand CPM carries such a one-level change to its peaks,
-where the f32 one has not so far. So islx's step cuts its crops with the
-port's resize (a host callback in place of
-``islx.ops.resize.dynamic_crop_resize_batch``); everything else in both
-steps is its own package's. Every integer plane of the packed buffer must
-then be word-equal; the f16 score words agree within one f16 rounding (as
-in the slice test). ``test_crop_rounding_is_the_only_hand_difference``
-runs islx's step unchanged: its body planes and hand boxes are word-equal
-to the port's, and its hand peaks differ only on crops whose pixels
-differ.
+Every integer plane of the packed buffer must be word-equal to islx's
+unchanged step; the f16 score words agree within one f16 rounding (as in
+the slice test). The hand crops' cubic resize sums in XLA's order
+(``islx_torch.ops.resize.SUM_ORDER``), so the crops the int8 hand CPM sees
+are islx's words (``test_crop_rounding_is_the_only_hand_difference``).
 """
 import numpy as np
 import pytest
@@ -64,20 +56,6 @@ def quantized(frames):
             jax.tree.map(np.asarray, JQ.quantize_model(hand, "hand", [x])))
 
 
-def _port_crops(frames, fidx, x0, y0, w, out_size, saturate_uint8=True):
-    """islx's crop resize replaced by the port's, as a host callback."""
-    assert saturate_uint8
-
-    def host(fr, fi, xx, yy, ww):
-        return TBP.dynamic_crop_resize_batch(
-            *(torch.from_numpy(np.array(v)) for v in (fr, fi, xx, yy, ww)),
-            out_size).numpy()
-
-    shape = jax.ShapeDtypeStruct(
-        (fidx.shape[0], out_size, out_size, frames.shape[-1]), jnp.float32)
-    return jax.pure_callback(host, shape, frames, fidx, x0, y0, w)
-
-
 def _steps(quantized, frames, size, stages):
     """-> (islx's packed buffer, the port's, the port's pipeline)."""
     qbody, qhand = quantized
@@ -113,7 +91,6 @@ def test_int8_fused_step_word_equal(monkeypatch, quantized, frames, size,
                                     stages):
     monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
     monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
-    monkeypatch.setattr(JBP, "dynamic_crop_resize_batch", _port_crops)
     want, got = _steps(quantized, frames, size, stages)
     planes, gplanes = _planes(want), _planes(got)
     for name, wpl in planes.items():
@@ -133,32 +110,34 @@ def test_int8_fused_step_word_equal(monkeypatch, quantized, frames, size,
 
 def test_crop_rounding_is_the_only_hand_difference(monkeypatch, quantized,
                                                    frames):
-    """islx's step as it is (160 px / 5 stages): body planes and hand
-    boxes word-equal; a crop's hand peaks equal wherever the two packages'
-    crop resizes give that crop the same pixels (here 2 of the 4 crops
-    hold values that round apart)."""
+    """The crops that islx's unchanged step (160 px / 5 stages) cuts from
+    its hand boxes, and that its int8 hand CPM amplifies a rounding apart
+    in, are word-equal to the port's before and after the rounding to
+    integers, at every crop of the step; the body planes, boxes and hand
+    planes are word-equal too."""
     from islx.ops.resize import dynamic_crop_resize_batch as islx_crops
 
     monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
     monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
     want, got = _steps(quantized, frames, 160, 5)
     planes, gplanes = _planes(want), _planes(got)
-    for name in ("xy", "count", "pair", "ok", "boxes"):
+    for name in ("xy", "count", "pair", "ok", "boxes", "hand_xy",
+                 "hand_found"):
         np.testing.assert_array_equal(gplanes[name], planes[name],
                                       err_msg=name)
     b = planes["boxes"]
+    assert (b[:, 3] > 0).sum() >= 2
     args = (b[:, 0], b[:, 1], b[:, 2], np.maximum(b[:, 3], 1))
-    jcrop = np.asarray(jax.jit(islx_crops, static_argnums=5)(
-        jnp.asarray(frames), *map(jnp.asarray, args), 160))
-    tcrop = TBP.dynamic_crop_resize_batch(
-        torch.from_numpy(frames), *(torch.from_numpy(np.array(v))
-                                    for v in args), 160).numpy()
-    apart = (jcrop != tcrop).reshape(len(b), -1).sum(1)
-    same = apart == 0
-    assert same.any() and apart.sum() <= 1e-4 * jcrop.size, apart
-    for name in ("hand_xy", "hand_found"):
-        np.testing.assert_array_equal(gplanes[name][same],
-                                      planes[name][same], err_msg=name)
+    f = jax.jit(islx_crops, static_argnums=(5, 6))
+    for saturate in (False, True):
+        jcrop = np.asarray(f(jnp.asarray(frames), *map(jnp.asarray, args),
+                             160, saturate))
+        tcrop = TBP.dynamic_crop_resize_batch(
+            torch.from_numpy(frames), *(torch.from_numpy(np.array(v))
+                                        for v in args), 160,
+            saturate).numpy()
+        np.testing.assert_array_equal(tcrop.view(np.uint32),
+                                      jcrop.view(np.uint32))
 
 
 def _planes(buf: np.ndarray) -> dict:
