@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero and the last line is never printed):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile the five CUDA kernels from islx_torch/csrc (one nvcc
-   per source, all started together, sm_90a);
+2. build: compile the five CUDA kernel sources from islx_torch/csrc (one
+   nvcc a source, sm_90a) and the C++ grouping (g++), all started
+   together;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (masks, indices, labels and ok bits bit-equal),
    with median times over 20 launches beside the bound; the NMS mask on
@@ -46,7 +47,23 @@ Phases (any failure exits non-zero and the last line is never printed):
 4b. the fused-184s6 step again with ``pallas_nms=True`` (the NMS+first-K
    kernel): its packed buffer's integer planes word-equal to phase 4's;
 5. translation: BatchedTranslatePipeline at batch 16 over 48 seeded
-   720x1280 frames (bucket 184x328, I420), frames - 19 predictions;
+   720x1280 frames (bucket 184x328, I420), frames - 19 predictions, with
+   the host's ms by stage (dispatch, fetch_group, featurize, head);
+5b. serving through islx_torch.serve at full width (BODY_25 + the gated
+   hand CPM, bf16, thre2 -0.5 and thre1 lowered from phase 4's until the
+   burst forms a person a frame and a hand box): a burst of
+   8 frames served word-equal to a direct step, with at least one person
+   and one hand; the grouping of a B=8 and a B=32 step timed in C++ and
+   in numpy (same people); load for 10 s a pass from 4 and 16 clients
+   over the 184x144 and 184x328 buckets at max_batch 8 and 32 (frames/s,
+   request p50/p99, the NMS mask kernel once a batch); one served B=8
+   batch under torch.profiler (device ms, busy share); the live int8 swap
+   on 184x184 frames, landing within a deadline, whose first full int8
+   batch launches conv_q and quantize once a conv, holds each of those
+   calls word for word against its plain version, and is word-equal to a
+   pipeline quantized directly on the stored calibration frames; the NMS
+   mask calls of the served batches held bit for bit against the plain
+   version at every served shape; GET /healthz over HTTP;
 6. the reference-parity path at full width in f32: ``ISLSignPos(Body,
    Hand)`` on a seeded 720x1280 frame and ``Hand`` on two 256x256 crops;
    the launch counters must show the NMS+first-K, PAF-sampling and
@@ -77,6 +94,7 @@ The script imports nothing of JAX or of the JAX package ``islx``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -84,6 +102,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1054,15 +1073,17 @@ def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False,
     return pipe, host, hb, wb, thre1
 
 
-def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
-                    ) -> dict:
-    """One more int8 fused step with every QConvLayer's conv and input
-    quantization watched: each call's kernel output is held word for word
-    against conv_q_plain (quantize_plain) on the same int8 input (float
-    input), weights, scales and output mode, ``chunk`` frames or crops at a
-    time, and each call must launch its kernel once. So every conv of the
-    step is checked at the batch, map size and calibrated scales the main
-    path gives it. -> {"convs", "quantizes", "max_abs_err", "shapes"}."""
+@contextlib.contextmanager
+def watched_convs(chunk=32):
+    """Inside the block every QConvLayer's conv and input quantization is
+    watched: each call's kernel output is held word for word against
+    conv_q_plain (quantize_plain) on the same int8 input (float input),
+    weights, scales and output mode, ``chunk`` frames or crops at a time,
+    and each call must launch its kernel once. So every conv that runs in
+    the block is checked at the batch, map size and calibrated scales its
+    path gives it. A mismatch raises RuntimeError (in a serving worker it
+    reaches the batch's futures). Yields {"convs", "quantizes",
+    "max_abs_err", "shapes"}."""
     from islx_torch.models import quant
     from islx_torch.ops import conv_q as CQ
 
@@ -1070,15 +1091,15 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
     seen = {"convs": 0, "quantizes": 0, "max_abs_err": 0.0, "shapes": set()}
 
     def fail(what, name, x):
-        raise SystemExit(f"main path: {what} differs from its plain version "
-                         f"at {name}, input {tuple(x.shape)}")
+        raise RuntimeError(f"main path: {what} differs from its plain "
+                           f"version at {name}, input {tuple(x.shape)}")
 
     def watched_core(self, x_q, cd, out_inv=None):
         c, before = self.spec, CQ.conv_q.launches
         out = core(self, x_q, cd, out_inv)
         if CQ.conv_q.launches != before + 1:
-            raise SystemExit(f"main path: {c.name} launched conv_q "
-                             f"{CQ.conv_q.launches - before} times")
+            raise RuntimeError(f"main path: {c.name} launched conv_q "
+                               f"{CQ.conv_q.launches - before} times")
         for i in range(0, x_q.shape[0], chunk):
             want = CQ.conv_q_plain(x_q[i:i + chunk], self.w_pack, self.cin,
                                    self.scale, self.bias, self.slope, c.act,
@@ -1098,9 +1119,9 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
         before = CQ.quantize.launches
         out = quantize(self, x)
         if CQ.quantize.launches != before + 1:
-            raise SystemExit(f"main path: {self.spec.name} launched "
-                             f"quantize {CQ.quantize.launches - before} "
-                             f"times")
+            raise RuntimeError(f"main path: {self.spec.name} launched "
+                               f"quantize {CQ.quantize.launches - before} "
+                               f"times")
         for i in range(0, x.shape[0], chunk):
             want = CQ.quantize_plain(x[i:i + chunk].permute(0, 2, 3, 1),
                                      self.inv, self.patch)
@@ -1112,12 +1133,53 @@ def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1, chunk=32
     quant.QConvLayer.core = watched_core
     quant.QConvLayer.quantize = watched_quantize
     try:
-        pipe.device_step_flat(flat, b, hb, wb, orig_hw, thre1,
-                              input_format="yuv420").cpu()
+        yield seen
     finally:
         quant.QConvLayer.core, quant.QConvLayer.quantize = core, quantize
-    seen["shapes"] = sorted(seen["shapes"])
+        seen["shapes"] = sorted(seen["shapes"])
+
+
+def main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1) -> dict:
+    """One more int8 fused step under watched_convs."""
+    with watched_convs() as seen:
+        pipe.device_step_flat(flat, b, hb, wb, orig_hw, thre1,
+                              input_format="yuv420").cpu()
     return seen
+
+
+@contextlib.contextmanager
+def watched_nms():
+    """Inside the block every NMS mask call of the peak stage is held bit
+    for bit against nms_mask_rows_plain on the same blurred maps, and must
+    launch its kernel once; a mismatch raises RuntimeError. Yields
+    {"calls", "shapes", "peaks"}."""
+    from islx_torch.ops import nms_mask as N
+    from islx_torch.ops import peaks as P
+
+    real = P.nms_mask_rows
+    seen = {"calls": 0, "shapes": set(), "peaks": 0}
+
+    def watched(blurred, thre1):
+        before = N.nms_mask_rows.launches
+        mask, cnt = real(blurred, thre1)
+        if N.nms_mask_rows.launches != before + 1:
+            raise RuntimeError(f"main path: nms_mask_rows launched "
+                               f"{N.nms_mask_rows.launches - before} times")
+        want_mask, want_cnt = N.nms_mask_rows_plain(blurred, thre1)
+        if not (torch.equal(mask, want_mask) and torch.equal(cnt, want_cnt)):
+            raise RuntimeError(f"main path: nms_mask_rows differs from its "
+                               f"plain version at {tuple(blurred.shape)}")
+        seen["calls"] += 1
+        seen["shapes"].add(tuple(blurred.shape))
+        seen["peaks"] += int(want_cnt.sum())
+        return mask, cnt
+
+    P.nms_mask_rows = watched
+    try:
+        yield seen
+    finally:
+        P.nms_mask_rows = real
+        seen["shapes"] = sorted(seen["shapes"])
 
 
 def fused_step(hand_cfg, b=192, orig_hw=(512, 384), steps=5,
@@ -1594,6 +1656,7 @@ def translation(hand_cfg, n_frames=48, batch=16, orig_hw=(720, 1280),
     if device == "cuda":
         torch.cuda.synchronize()
     N.nms_mask_rows.launches = 0
+    pipe.prof = {}
     t0 = time.perf_counter()
     out = pipe.translate_yuv_frames(frames, orig_hw, (hb, wb))
     dt = time.perf_counter() - t0
@@ -1606,11 +1669,455 @@ def translation(hand_cfg, n_frames=48, batch=16, orig_hw=(720, 1280),
         raise SystemExit("translation: prediction out of range")
     if launches != (-(-n_frames // batch) if device == "cuda" else 0):
         raise SystemExit(f"translation: nms launches {launches}")
+    stage_ms = {k: v * 1e3 for k, v in pipe.prof.items()}
     res = {"frames": n_frames, "batch": batch, "bucket": [hb, wb],
            "predictions": len(out), "frames_per_s": n_frames / dt,
-           "nms_launches": launches, "thre1": pipe.thre1}
+           "nms_launches": launches, "thre1": pipe.thre1,
+           "wall_ms": dt * 1e3, "host_stage_ms": stage_ms}
     log(f"  translation: {len(out)} predictions over {n_frames} frames, "
-        f"{res['frames_per_s']:.1f} frames/s, nms launches {launches}")
+        f"{res['frames_per_s']:.1f} frames/s, nms launches {launches}; "
+        f"host ms by stage over the run ({dt * 1e3:.1f} ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items()))
+    return res
+
+
+SERVE_BUCKETS = ((184, 144), (184, 328))   # portrait 4:3 and 16:9 frames
+
+
+def serve_counts() -> dict:
+    """The launch counts of the serving path's three kernels."""
+    from islx_torch.ops import conv_q as CQ
+    from islx_torch.ops import nms_mask as N
+
+    return {"nms_mask_rows": N.nms_mask_rows.launches,
+            "conv_q": CQ.conv_q.launches, "quantize": CQ.quantize.launches}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block (a reference to compare with) are
+    taken out of the counts again."""
+    from islx_torch.ops import conv_q as CQ
+    from islx_torch.ops import nms_mask as N
+
+    before = serve_counts()
+    try:
+        yield
+    finally:
+        N.nms_mask_rows.launches = before["nms_mask_rows"]
+        CQ.conv_q.launches = before["conv_q"]
+        CQ.quantize.launches = before["quantize"]
+
+
+def delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in serve_counts().items()}
+
+
+def bgr_frames(rng, n, hb, wb) -> np.ndarray:
+    """n seeded u8 BGR frames [n,hb,wb,3]: seeded I420 decoded on the card
+    (the machine has no cv2)."""
+    from islx_torch.ops.yuv import yuv420_to_bgr
+
+    host = seeded_i420(rng, n, hb, wb)
+    return yuv420_to_bgr(torch.from_numpy(host).cuda(), n, hb, wb).to(
+        torch.uint8).cpu().numpy()
+
+
+def serve_batch(batcher, frames, timeout=120.0) -> list:
+    """Submit the frames at once and wait for every result."""
+    futs = [batcher.submit(f) for f in frames]
+    return [f.result(timeout=timeout) for f in futs]
+
+
+def same_results(got, results, boxes, peaks, pipe) -> bool:
+    """PoseResults equal, word for word, to a direct step's assembly."""
+    for i, r in enumerate(got):
+        cand, subset = results[i]
+        hands = pipe.hands_for_frame(boxes, peaks, i)
+        if not (np.array_equal(r.candidate, cand)
+                and np.array_equal(r.subset, subset)
+                and len(r.hands) == len(hands)
+                and all(np.array_equal(a, b) for a, b in zip(r.hands,
+                                                             hands))):
+            return False
+    return True
+
+
+def load_pass(pipe, max_batch, clients, pools, seconds=10.0) -> dict:
+    """``clients`` threads, each sending requests one at a time (the next
+    after the last one's result) for ``seconds``, alternating the two
+    buckets' frames, through a MicroBatcher at ``max_batch`` and the
+    default 15 ms window, after one warm batch a bucket on a batcher of
+    its own, whose NMS calls are held against their plain version. The
+    NMS mask kernel must launch once a served batch."""
+    from islx_torch.serve import MicroBatcher
+
+    warm = MicroBatcher(pipe, max_batch=max_batch)
+    try:
+        with watched_nms() as nms:
+            for pool in pools:
+                serve_batch(warm, pool[:max_batch])
+    finally:
+        warm.close()
+    b = MicroBatcher(pipe, max_batch=max_batch)
+    errors, done = [], [0] * clients
+
+    def client(c, stop_at):
+        try:
+            j = 0
+            while time.perf_counter() < stop_at:
+                pool = pools[(c + j) % len(pools)]
+                b.submit(pool[(c * 7 + j) % len(pool)]).result(timeout=120)
+                done[c] += 1
+                j += 1
+        except Exception as exc:     # reported below, and the phase fails
+            errors.append(repr(exc))
+
+    torch.cuda.synchronize()
+    before = serve_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c, t0 + seconds))
+               for c in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=seconds + 300)
+        dt = time.perf_counter() - t0
+    finally:
+        b.close()
+    launches = delta(before)
+    st = b.stats()
+    n = sum(done)
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"serving load: client errors {errors[:3]}")
+    if (n < 256 or st["requests"] != n
+            or st["latency_window_n"] != min(n, 2048)):
+        raise SystemExit(f"serving load: {n} requests answered, {st}")
+    if launches["nms_mask_rows"] != st["batches"]:
+        raise SystemExit(f"serving load: nms_mask_rows launched "
+                         f"{launches['nms_mask_rows']} times in "
+                         f"{st['batches']} batches")
+    res = {"max_batch": max_batch, "clients": clients, "requests": n,
+           "frames_per_s": n / dt, "seconds": dt,
+           "p50_ms": st["latency_ms_p50_request"],
+           "p99_ms": st["latency_ms_p99_request"],
+           "batches": st["batches"], "frames_padded": st["frames_padded"],
+           "nms_launches": launches["nms_mask_rows"],
+           "nms_checked": nms["shapes"]}
+    log(f"  load max_batch {max_batch}, {clients} clients: "
+        f"{res['frames_per_s']:.1f} frames/s over {dt:.1f} s ({n} "
+        f"requests), request p50 {res['p50_ms']} ms, p99 {res['p99_ms']} "
+        f"ms, {res['batches']} batches, {res['frames_padded']} frames "
+        f"padded, nms launches {res['nms_launches']}")
+    return res
+
+
+@contextlib.contextmanager
+def numpy_grouping():
+    """Group in numpy (islx's ISLX_NO_NATIVE switch) inside the block."""
+    old = os.environ.get("ISLX_NO_NATIVE")
+    os.environ["ISLX_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ISLX_NO_NATIVE"]
+        else:
+            os.environ["ISLX_NO_NATIVE"] = old
+
+
+def grouping_ms(pipe, packed, b) -> dict:
+    """Host ms of ``assemble`` on a step's fetched buffer, with the C++
+    grouping and with numpy's; both must give the same people."""
+    def run():
+        return pipe.assemble(packed, b)[0]
+
+    cpp = run()
+    with numpy_grouping():
+        ref = run()
+        numpy_ms = host_ms(run, reps=5)
+    if not all(np.array_equal(c0, c1) and np.array_equal(s0, s1)
+               for (c0, s0), (c1, s1) in zip(cpp, ref)):
+        raise SystemExit("serving: the C++ grouping differs from numpy's")
+    res = {"batch": b, "people": sum(len(s) for _, s in cpp),
+           "candidates": sum(len(c) for c, _ in cpp),
+           "cpp_ms": host_ms(run, reps=5), "numpy_ms": numpy_ms}
+    log(f"  grouping a batch of {b} ({res['people']} people, "
+        f"{res['candidates']} candidates): C++ {res['cpp_ms']:.3f} ms, "
+        f"numpy {numpy_ms:.3f} ms (host, median of 5), same people")
+    return res
+
+
+def profile_served(pipe, frames, reps=5) -> dict:
+    """``reps`` served batches of the same full batch of frames, timed from
+    submit to the last result, then ``reps`` more under torch.profiler:
+    device ms a batch (its kernels and copies), device operations a batch,
+    and the device's busy share of the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from islx_torch.serve import MicroBatcher
+
+    b = MicroBatcher(pipe, max_batch=len(frames), max_wait_ms=1000.0)
+    try:
+        serve_batch(b, frames)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve_batch(b, frames)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                serve_batch(b, frames)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        b.close()
+    ops = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and e.name not in STAGES]
+    device_ms = sum(e.device_time_total for e in ops) / 1e3 / reps
+    if device_ms <= 0:
+        raise SystemExit("serving profile: the trace holds no device time")
+    wall = statistics.median(walls)
+    res = {"batch": len(frames), "bucket": list(frames.shape[1:3]),
+           "wall_ms": wall, "wall_ms_profiled": prof_wall,
+           "device_ms": device_ms, "device_ops": len(ops) / reps,
+           "device_busy_share": device_ms / wall}
+    log(f"  a served batch of {len(frames)} at {res['bucket']}: wall "
+        f"{wall:.1f} ms (median of {reps}; {prof_wall:.1f} under the "
+        f"profiler), device {device_ms:.2f} ms in {res['device_ops']:.0f} "
+        f"kernels and copies, busy {100 * res['device_busy_share']:.1f}%")
+    return res
+
+
+def calibrate_people(pipe, frames, thre1) -> float:
+    """Set thre2 to -0.5 (the CPU serve tests' value) and lower thre1 from
+    phase 4's calibrated value by x0.75 until a direct step of ``frames``
+    forms a person a frame on average and at least one hand box (random
+    weights form none at phase 4's thre1) -> that thre1, set in the
+    pipeline's config."""
+    for _ in range(16):
+        pipe.body.cfg = dataclasses.replace(pipe.body.cfg, thre1=thre1,
+                                            thre2=-0.5)
+        results, boxes, _ = pipe.assemble(
+            pipe.device_step(frames, frames.shape[1:3]), len(frames))
+        if (sum(len(s) for _, s in results) >= len(frames)
+                and (boxes[:, 3] > 0).any()):
+            return thre1
+        thre1 *= 0.75
+    raise SystemExit(f"serving: no thre1 down to {thre1} forms people")
+
+
+def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
+    """The serving path at full width (BODY_25 + the hand CPM at
+    ``hand_cfg``, bf16, the parity phase's seeded weights, thre1 and
+    thre2 by calibrate_people, so that people and hands form) through
+    islx_torch.serve: (a) a burst of
+    8 frames served word-equal to a direct step, with at least one person
+    and one hand, and the grouping timed in C++ and numpy; (b) load from 4
+    and 16 clients at max_batch 8 and 32, and one served B=8 batch
+    profiled; (c) the live int8 swap on 184x184 frames, landing within
+    ``swap_deadline_s``, its first full batch word-equal to a pipeline
+    quantized directly on the stored calibration frames, with each of its
+    conv_q and quantize calls held against their plain versions; (d) GET
+    /healthz over HTTP. Every served batch of (a), (b)'s warm batches and
+    (c)'s int8 batch hold their NMS mask calls against the plain version.
+    The counts start at 0; the references' launches are taken out."""
+    import urllib.request
+
+    from islx_torch.models import quant
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.serve import MicroBatcher, PoseServer
+
+    rng = np.random.RandomState(3)
+    pools = [bgr_frames(rng, 32, hb, wb) for hb, wb in SERVE_BUCKETS]
+    pipe = FusedPosePipeline(*parity_weights(), hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    hb, wb = SERVE_BUCKETS[0]
+    burst = pools[0][:8]
+    thre1 = calibrate_people(pipe, burst, calibrate_thre1(
+        pipe, pipe.upload_frames(seeded_i420(np.random.RandomState(0), 32,
+                                             hb, wb)), 32, hb, wb, (hb, wb)))
+    from islx_torch.ops import conv_q as CQ
+    from islx_torch.ops import nms_mask as N
+
+    N.nms_mask_rows.launches = 0
+    CQ.conv_q.launches = 0
+    CQ.quantize.launches = 0
+    t_phase = time.perf_counter()
+    nms_shapes = set()
+
+    # (a) a burst of one full batch, against a direct step
+    b = MicroBatcher(pipe, max_batch=8, max_wait_ms=1000.0)
+    try:
+        with watched_nms() as nms:
+            got = serve_batch(b, burst)
+    finally:
+        b.close()
+    nms_shapes.update(nms["shapes"])
+    if b.stats()["batches"] != 1:
+        raise SystemExit(f"serving: the burst took {b.stats()['batches']} "
+                         f"batches")
+    with uncounted():
+        packed = pipe.device_step(burst, (hb, wb)).cpu().numpy()
+        wide = pipe.device_step(pools[1], SERVE_BUCKETS[1]).cpu().numpy()
+    results, boxes, peaks = pipe.assemble(packed, 8)
+    if not same_results(got, results, boxes, peaks, pipe):
+        raise SystemExit("serving: the burst's results differ from a direct "
+                         "step's")
+    people = sum(len(r.subset) for r in got)
+    hands = sum(len(r.hands) for r in got)
+    if not (people and hands):
+        raise SystemExit(f"serving: the burst formed {people} people and "
+                         f"{hands} hands; the check needs both")
+    exact = {"frames": 8, "candidates": sum(len(r.candidate) for r in got),
+             "people": people, "hands": hands, "thre1": thre1, "thre2": -0.5,
+             "word_equal": True}
+    log(f"  burst of 8: served results word-equal to a direct step "
+        f"({exact['candidates']} candidates, {people} people, {hands} "
+        f"hands)")
+    grouping = [grouping_ms(pipe, packed, 8), grouping_ms(pipe, wide, 32)]
+
+    # (b) load, then one served B=8 batch profiled
+    load = [load_pass(pipe, mb, clients, pools)
+            for mb in (8, 32) for clients in (4, 16)]
+    for row in load:
+        nms_shapes.update(row["nms_checked"])
+    profiled = profile_served(pipe, burst)
+
+    # (c) the live int8 swap on 184x184 frames (no resize, hand crop 184)
+    side = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
+    sq = bgr_frames(rng, 24, side, side)
+    b = MicroBatcher(pipe, max_batch=8, max_wait_ms=1000.0,
+                     quantize_after=16)
+    real_step = FusedPosePipeline.device_step
+    stepped = []
+
+    def recorded(self, frames, orig_hw=None, thre1=None):
+        out = real_step(self, frames, orig_hw, thre1)
+        stepped.append(out.cpu().numpy())
+        return out
+
+    try:
+        serve_batch(b, sq[:8])
+        serve_batch(b, sq[8:16])
+        t0 = time.perf_counter()
+        float_batches = 0
+        while not b.stats()["quantized"]:
+            if time.perf_counter() - t0 > swap_deadline_s:
+                raise SystemExit(f"serving: the int8 swap did not land in "
+                                 f"{swap_deadline_s} s: {b.stats()}")
+            serve_batch(b, sq[16:24])
+            float_batches += not b.stats()["quantized"]
+        landed = time.perf_counter() - t0
+        if b.stats().get("quantize_error"):
+            raise SystemExit(f"serving: {b.stats()['quantize_error']}")
+        before = serve_counts()
+        FusedPosePipeline.device_step = recorded
+        try:
+            with watched_convs() as convs, watched_nms() as nms:
+                got = serve_batch(b, sq[16:24])
+        finally:
+            FusedPosePipeline.device_step = real_step
+        one = delta(before)
+    finally:
+        b.close()
+    nms_shapes.update(nms["shapes"])
+    stages = hand_cfg.stages
+    want = {"nms_mask_rows": 1, "conv_q": 114 + 17 + 7 * (stages - 1),
+            "quantize": 103 + 2 + (stages - 1)}
+    if one != want or (convs["convs"], convs["quantizes"]) != (
+            want["conv_q"], want["quantize"]):
+        raise SystemExit(f"serving: the int8 batch launched {one} and held "
+                         f"{convs['convs']} convs and {convs['quantizes']} "
+                         f"quantizations against their plain versions, "
+                         f"want {want}")
+    need = {(8, 25, 184, 144), (8, 25, 184, 328), (32, 25, 184, 144),
+            (32, 25, 184, 328), (8, 25, side, side)}
+    if not need <= nms_shapes:
+        raise SystemExit(f"serving: nms_mask_rows was held against its "
+                         f"plain version at {sorted(nms_shapes)}, not at "
+                         f"{sorted(need - nms_shapes)}")
+    log(f"  int8 batch: all {convs['convs']} conv_q calls "
+        f"({len(convs['shapes'])} distinct shapes) and {convs['quantizes']} "
+        f"quantize calls word-equal to their plain versions; nms_mask_rows "
+        f"bit-equal to its plain version on the served batches' maps at "
+        f"{sorted(nms_shapes)}")
+    calib = np.stack(b.calibrated_on)
+    if not np.array_equal(calib, sq[:16]):
+        raise SystemExit("serving: the swap did not calibrate on the first "
+                         "16 served frames")
+    with uncounted():
+        x = calib.astype(np.float32) / 256.0 - 0.5
+        chunks = [x[i:i + 8] for i in range(0, len(x), 8)]
+        states = (quant.quantize_model(pipe.body.params, "body25", chunks,
+                                       torch.bfloat16, device="cuda"),
+                  quant.quantize_model(pipe.hand.params, "hand", chunks,
+                                       torch.bfloat16, device="cuda"))
+        ref = FusedPosePipeline(*states, pose_cfg=pipe.body.cfg,
+                                hand_cfg=hand_cfg,
+                                compute_dtype=torch.bfloat16, device="cuda")
+        ref_packed = ref.device_step(sq[16:24], (side, side)).cpu().numpy()
+        del ref
+    apart = [f"{net}.{layer}.{key}"
+             for net, got, want in (("body", b.pipe.body.params, states[0]),
+                                    ("hand", b.pipe.hand.params, states[1]))
+             for layer, entry in want.items() for key, v in entry.items()
+             if not (torch.equal(v.cpu(), got[layer][key].cpu())
+                     if isinstance(v, torch.Tensor)
+                     else v == got[layer][key])]
+    if apart:
+        raise SystemExit(f"serving: the swap's int8 states differ from a "
+                         f"direct quantize_model's at {apart[:6]}")
+    if len(stepped) != 1 or not np.array_equal(stepped[0], ref_packed):
+        raise SystemExit(f"serving: the int8 batch's packed buffer differs "
+                         f"from a directly quantized pipeline's "
+                         f"({len(stepped)} steps recorded)")
+    swap = {"quantize_after": 16, "landed_s": landed,
+            "float_batches_while_swapping": float_batches,
+            "keys_warmed": len(b.pipe.program_keys()),
+            "launches_one_batch": one, "word_equal": True,
+            "words": int(ref_packed.size),
+            "convs_checked": convs["convs"],
+            "quantizes_checked": convs["quantizes"],
+            "conv_max_abs_err": convs["max_abs_err"],
+            "candidates": sum(len(r.candidate) for r in got),
+            "people": sum(len(r.subset) for r in got),
+            "hands": sum(len(r.hands) for r in got)}
+    log(f"  int8 swap: landed {landed:.2f} s after it started "
+        f"({float_batches} float batches served meanwhile, "
+        f"{swap['keys_warmed']} keys warmed); one int8 batch launched "
+        f"{one}; its {swap['words']} words equal a directly quantized "
+        f"pipeline's ({swap['people']} people, {swap['hands']} hands)")
+
+    # (d) HTTP, on the int8 pipeline (GET only: no cv2 to decode a POST)
+    server = PoseServer(b.pipe, port=0, max_batch=8)
+    server.start()
+    try:
+        server.batcher.pose(sq[0], timeout=120)
+        url = f"http://127.0.0.1:{server.port}/healthz"
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.close()
+    if not (health.get("ok") and health["requests"] == 1
+            and health["batches"] == 1 and health["quantized"] is False
+            and health["latency_window_n"] == 1):
+        raise SystemExit(f"serving: /healthz gave {health}")
+    log(f"  GET /healthz over HTTP: {health}")
+    launches = serve_counts()
+    for k, v in launches.items():
+        if v <= 0:
+            raise SystemExit(f"serving: {k} never launched")
+    res = {"hand": f"{side}px/s{stages}", "exact": exact, "load": load,
+           "grouping": grouping, "profiled_batch": profiled, "swap": swap,
+           "nms_checked": sorted(nms_shapes), "healthz": health,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    log(f"  serving launches {launches} in {res['seconds']:.1f} s")
     return res
 
 
@@ -1641,11 +2148,12 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label", "conv_q")
+    names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label", "conv_q",
+             "grouping")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.build, names))       # one nvcc a source
-    log(f"[2] build: {', '.join(n + '.cu' for n in names)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        paths = list(pool.map(_build.build, names))   # a compiler a source
+    log(f"[2] build: {', '.join(os.path.basename(p) for p in paths)} from "
+        f"islx_torch/csrc in {time.perf_counter() - t0:.1f} s")
 
     def finish(result: dict) -> int:
         log(json.dumps(result))
@@ -1758,6 +2266,9 @@ def main(argv=None) -> int:
     log("[5] translation")
     trans = translation(hand_cfg)
 
+    log("[5b] serving: micro-batcher, int8 swap and HTTP, full width")
+    serve = serving(hand_cfg)
+
     log("[6] reference-parity path, full width, f32")
     parity, body, frame = parity_path()
     parity_small_check()
@@ -1770,6 +2281,7 @@ def main(argv=None) -> int:
         bench = rows[main]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "serving_launches": serve["launches"].get(name, 0),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
                 "ms": bench["ms"], "plain_ms": bench["plain_ms"],
@@ -1794,7 +2306,7 @@ def main(argv=None) -> int:
               "islx/models/quant.py:63", step_q["quantize_launches"],
               quant_rows)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
-        "translation": trans, "parity": parity,
+        "translation": trans, "serving": serve, "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -56,6 +57,11 @@ def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(c.double(), a.double(), b.double()).float()
 
 
+_F32_LOCK = threading.Lock()
+_f32_depth = 0
+_f32_saved = (True, False)
+
+
 @contextlib.contextmanager
 def true_f32():
     """Float32 convolutions and matmuls in full f32 inside the block.
@@ -63,14 +69,25 @@ def true_f32():
     cuDNN runs f32 convolutions in TF32 by default
     (``torch.backends.cudnn.allow_tf32``), which keeps ~3 decimal digits;
     the JAX reference computes them in f32. CUDA matmuls are already full
-    f32 by default (``torch.backends.cuda.matmul.allow_tf32`` is False);
-    the block sets both and restores them after."""
-    conv, mm = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 by default (``torch.backends.cuda.matmul.allow_tf32`` is False).
+    Both flags are global to the process, and a server runs forwards on two
+    threads at once (requests, and the int8 swap's calibration), so the
+    blocks are counted: the first to enter clears both flags, and only the
+    last to leave restores them. A block that left early would otherwise
+    restore TF32 under a forward still inside its own block."""
+    global _f32_depth, _f32_saved
+    with _F32_LOCK:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        with _F32_LOCK:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _f32_saved

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its C++ host code.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``islx_torch/_build/lib<name>.so`` the first
 time a kernel of it is launched in a process, and loaded with ``ctypes``.
-Nothing is built on import, so the package imports on machines without
-``nvcc`` or a GPU. A library newer than its source and every header in
-``csrc/`` is reused.
+A ``csrc/<name>.cpp`` (host code: the person grouping) is compiled the same
+way with ``g++``. Nothing is built on import, so the package imports on
+machines without ``nvcc`` or a GPU. A library newer than its source (and,
+for a ``.cu``, than every header in ``csrc/``) is reused.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,24 +46,41 @@ def nvcc() -> str:
     return path
 
 
+def cxx() -> str:
+    """Path of ``g++`` on PATH."""
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the port's C++ grouping "
+                           "(csrc/grouping.cpp) is built with g++ at first "
+                           "use")
+    return found
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library newer than it and than
-    every ``csrc/*.cuh`` exists; -> the library's path. Raises with nvcc's
-    output if it fails."""
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (g++)
+    unless a library newer than it (and than every ``csrc/*.cuh`` for a
+    ``.cu``) exists; -> the library's path. Raises with the compiler's
+    output if it fails, and if the compiler is missing."""
     src = os.path.join(CSRC, f"{name}.cu")
+    deps = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+    if not os.path.exists(src):
+        src = os.path.join(CSRC, f"{name}.cpp")
+        deps = [src]
     out = os.path.join(BUILD, f"lib{name}.so")
-    newest = max(map(os.path.getmtime,
-                     [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]))
-    if os.path.exists(out) and os.path.getmtime(out) >= newest:
+    if (os.path.exists(out)
+            and os.path.getmtime(out) >= max(map(os.path.getmtime, deps))):
         return out
+    cmd = ([nvcc(), *NVCC_FLAGS] if src.endswith(".cu")
+           else [cxx(), *CXX_FLAGS])
     os.makedirs(BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([*cmd, "-o", tmp, src],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed on "
+                               f"{src}:\n{proc.stderr}")
         os.replace(tmp, out)       # atomic: a reader never sees half a file
     finally:
         if os.path.exists(tmp):
@@ -70,7 +89,8 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built on
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -88,34 +88,41 @@ def resize_cubic(img: torch.Tensor, h_out: int, w_out: int,
 # AVX2, FMA, AVX-512 F/BW/VL/VNNI/BF16/FP16, AMX), and may differ on
 # another instruction set. It depends on all three sizes: (168 columns, 40
 # long) sums as a chain at 46 rows and mod 4 at 92. Listed: the shapes
-# that the port's tests and chip_smoke.py run, and the fused step's
-# 184-row buckets (``pipeline.batch_pose.bucket_for``) of portrait 16:9,
-# portrait 4:3, square, 4:3, 3:2 and 16:9 frames at both crop sizes. Any
-# other shape sums as a chain and warns (:func:`_sum_order`): a crop value
-# there may round unlike islx's. tests/test_torch_crop_resize.py probes
-# every entry (the one order of the three that gives islx's words).
+# that the port's tests and chip_smoke.py run, and every 184-row bucket the
+# fused step and the server can meet (``pipeline.batch_pose.bucket_for``:
+# 96 to 432 wide in steps of 8, 1:2 portrait to 21:9) at both crop sizes.
+# Any other shape sums as a chain and warns (:func:`_sum_order`): a crop
+# value there may round unlike islx's. tests/test_torch_crop_resize.py
+# holds every entry word-equal to islx and probes the tests' shapes (the
+# one order of the three that gives islx's words).
 CHAIN, EVEN_ODD, MOD4 = "chain", "even_odd", "mod4"
 SUM_ORDER = {
-    # first dot, (crop size, W * C, H): 48x48, 40x56 and 184x96 frames;
-    # 184-row buckets 104, 144, 184, 248, 280 and 328 wide
+    # first dot, (crop size, W * C, H): 48x48, 40x56, 48x64, 48x72 and
+    # 184x96 frames
     (92, 144, 48): MOD4, (160, 144, 48): MOD4, (184, 144, 48): MOD4,
-    (46, 168, 40): CHAIN, (92, 168, 40): MOD4, (92, 288, 184): EVEN_ODD,
-    (160, 312, 184): CHAIN, (184, 312, 184): CHAIN,
-    (160, 432, 184): MOD4, (184, 432, 184): MOD4,
-    (160, 552, 184): MOD4, (184, 552, 184): MOD4,
-    (160, 744, 184): MOD4, (184, 744, 184): MOD4,
-    (160, 840, 184): MOD4, (184, 840, 184): MOD4,
-    (160, 984, 184): EVEN_ODD, (184, 984, 184): EVEN_ODD,
+    (46, 168, 40): CHAIN, (92, 168, 40): MOD4, (92, 192, 48): CHAIN,
+    (92, 216, 48): EVEN_ODD, (92, 288, 184): EVEN_ODD,
     # second dot, (crop size * C, crop size, W)
     (138, 46, 56): MOD4, (276, 92, 48): EVEN_ODD, (276, 92, 56): EVEN_ODD,
+    (276, 92, 64): EVEN_ODD, (276, 92, 72): EVEN_ODD,
     (276, 92, 96): EVEN_ODD, (480, 160, 48): EVEN_ODD,
-    (480, 160, 104): EVEN_ODD, (480, 160, 144): EVEN_ODD,
-    (480, 160, 184): EVEN_ODD, (480, 160, 248): EVEN_ODD,
-    (480, 160, 280): EVEN_ODD, (480, 160, 328): EVEN_ODD,
-    (552, 184, 48): CHAIN, (552, 184, 104): CHAIN, (552, 184, 144): CHAIN,
-    (552, 184, 184): CHAIN, (552, 184, 248): CHAIN, (552, 184, 280): CHAIN,
-    (552, 184, 328): CHAIN,
+    (552, 184, 48): CHAIN,
 }
+# The 184-row buckets, by width: the first dot's order, the same at 160 and
+# 184 px crops; the second dot sums even/odd at 160 px and as a chain at 184
+# px at every width.
+_BUCKET_FIRST = {
+    EVEN_ODD: (96, 136, 160, 200, 224, 264, 288, 328, 352, 392, 416),
+    MOD4: (112, 120, 144, 152, 176, 184, 208, 216, 240, 248, 272, 280, 304,
+           312, 336, 344, 368, 376, 400, 408, 432),
+    CHAIN: (104, 128, 168, 192, 232, 256, 296, 320, 360, 384, 424),
+}
+for _order, _widths in _BUCKET_FIRST.items():
+    for _w in _widths:
+        SUM_ORDER[(160, _w * 3, 184)] = SUM_ORDER[(184, _w * 3, 184)] = _order
+        SUM_ORDER[(480, 160, _w)] = EVEN_ODD
+        SUM_ORDER[(552, 184, _w)] = CHAIN
+del _order, _widths, _w
 
 
 def _sum_order(shape) -> str:

@@ -21,7 +21,8 @@ time by stage (``chip_smoke.py --profile``).
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +31,7 @@ from torch.profiler import record_function
 from islx_torch.core import weights as W
 from islx_torch.core.config import DetectorConfig, HandConfig, PoseConfig
 from islx_torch.core.runtime import div, resolve_device
-from islx_torch.ops import grouping
+from islx_torch.ops import grouping, native
 from islx_torch.ops.hand_boxes import device_hand_boxes
 from islx_torch.ops.hand_peaks import find_hand_peaks_refine
 from islx_torch.ops.paf import (LIMB_TABLES, compact_connections,
@@ -191,8 +192,15 @@ class BatchedBodyPipeline:
         return xy, score, count, pair, np.where(cok, cscore, 0.0), cok
 
     def assemble(self, packed, b: int) -> List[Tuple[np.ndarray, np.ndarray]]:
-        """Packed buffer -> per-frame (candidate, subset), numpy grouping."""
+        """Packed buffer -> per-frame (candidate, subset): the whole batch
+        in one call of the C++ grouping (:mod:`islx_torch.ops.native`), or
+        frame by frame in numpy where ``ISLX_NO_NATIVE`` is set, as islx
+        chooses."""
         xy, score, count, pair, cscore, cok = self.unpack(packed, b)
+        if native.enabled():
+            return native.assemble_batch(xy, score, count, pair, cscore, cok,
+                                         self.cfg.max_peaks, self.limb_seq,
+                                         self.cfg.njoint)
         return [grouping.assemble_sorted(
             xy[i], score[i], count[i], pair[i], cscore[i], cok[i],
             self.cfg.max_peaks, self.limb_seq, self.cfg.njoint)
@@ -237,9 +245,15 @@ class FusedPosePipeline:
 
     ``body_params``/``hand_params`` are port weight states
     (:mod:`islx_torch.core.weights`), float or int8 W8A8
-    (:mod:`islx_torch.models.quant`); ``device`` defaults to ``"cuda"`` and
-    raises when no GPU is present unless ``"cpu"`` is asked for;
-    ``pallas_nms`` is :class:`BatchedBodyPipeline`'s."""
+    (:mod:`islx_torch.models.quant`), kept as ``body.params`` and
+    ``hand.params`` (the server's int8 swap calibrates them); ``device``
+    defaults to ``"cuda"`` and raises when no GPU is present unless
+    ``"cpu"`` is asked for; ``pallas_nms`` is :class:`BatchedBodyPipeline`'s.
+
+    ``_programs`` records the :meth:`program_key` of every shape the
+    pipeline has stepped, in first-step order. islx compiles one program a
+    key; the port compiles none, but the server's per-bucket LRU
+    (:meth:`drop_programs`) and its int8 swap's warm-up read these keys."""
 
     MAX_HANDS = 2
 
@@ -258,8 +272,39 @@ class FusedPosePipeline:
         self.hand = BatchedHandPipeline(
             W.build("hand", hand_params, self.device, compute_dtype),
             hand_cfg or HandConfig.production(), compute_dtype)
+        self.body.params, self.hand.params = body_params, hand_params
         self.det_cfg = det_cfg or DetectorConfig()
         self.model_type = model_type
+        self._programs: Dict[tuple, None] = {}
+        self._programs_lock = threading.Lock()
+
+    def program_key(self, b: int, hb: int, wb: int,
+                    orig_hw: Tuple[int, int],
+                    input_format: str = "bgr") -> tuple:
+        """The key a step with these shapes records (islx's program-cache
+        key: batch, bucket, the bucket-to-frame scales and the input
+        format)."""
+        return (b, hb, wb, float(orig_hw[0] / hb), float(orig_hw[1] / wb),
+                input_format)
+
+    def program_keys(self) -> List[tuple]:
+        """The keys stepped so far, oldest first."""
+        with self._programs_lock:
+            return list(self._programs)
+
+    def drop_programs(self, hb: int, wb: int) -> None:
+        """Forget every key of bucket (hb, wb): the server bounds the
+        buckets it keeps live (:class:`islx_torch.serve.MicroBatcher`).
+
+        islx frees the bucket's compiled XLA programs here. The port keeps
+        no per-bucket device state to free: the steps' interpolation and
+        blur matrices are small host arrays in bounded LRU caches keyed by
+        axis lengths (``ops/peaks.py``, ``ops/resize.py``), shared by every
+        bucket of the same height, and are copied to the device at each
+        step. So only the keys go."""
+        with self._programs_lock:
+            for key in [k for k in self._programs if k[1:3] == (hb, wb)]:
+                del self._programs[key]
 
     def upload_frames(self, frames: np.ndarray) -> torch.Tensor:
         """A frame batch (u8 BGR or I420 bytes) as one flat device buffer."""
@@ -277,7 +322,6 @@ class FusedPosePipeline:
         [b*hb*wb*3/2])."""
         t1 = float(np.float32(self.body.cfg.thre1 if thre1 is None
                               else thre1))
-        sy, sx = orig_hw[0] / hb, orig_hw[1] / wb
         if input_format == "yuv420":
             with record_function("yuv420_to_bgr"):
                 frames = yuv420_to_bgr(flat, b, hb, wb)
@@ -285,6 +329,10 @@ class FusedPosePipeline:
             frames = flat.reshape(b, hb, wb, 3)
         else:
             raise ValueError(f"unknown input_format {input_format!r}")
+        key = self.program_key(b, hb, wb, orig_hw, input_format)
+        with self._programs_lock:
+            self._programs[key] = None
+        sy, sx = key[3], key[4]
         pk, cc = self.body.core(frames, t1, hb, wb)
         with record_function("hand_boxes"):
             boxes2 = device_hand_boxes(pk.xy, cc.pair, cc.score, cc.ok,

@@ -9,9 +9,16 @@ host grouping from the one packed fetch -> 156-d features -> rolling
 ``finish_batch`` copies that batch's packed buffer to the host and runs
 grouping and features. Streams dispatch batch i+1 before finishing batch
 i, so host work overlaps the device.
+
+Setting ``prof`` to a dict accumulates host seconds by stage (islx's
+accounting): ``dispatch`` (upload and enqueue of the fused step),
+``fetch_group`` (the packed buffer's copy to the host, which waits for the
+device, and grouping), ``featurize`` (156-d features) and ``head`` (the
+BiLSTM on the windows, with its result's copy).
 """
 from __future__ import annotations
 
+import time
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -56,6 +63,13 @@ class BatchedTranslatePipeline:
         self.thre1: Optional[float] = None
         self.head = T.build_head(head_params, self.device, cfg)
         self._window: List[np.ndarray] = []
+        # host seconds by stage, accumulated where a dict is set
+        self.prof: Optional[dict] = None
+
+    def _tick(self, key: str, t0: float) -> None:
+        if self.prof is not None:
+            self.prof[key] = (self.prof.get(key, 0.0)
+                              + (time.perf_counter() - t0))
 
     def reset(self) -> None:
         self._window.clear()
@@ -63,10 +77,12 @@ class BatchedTranslatePipeline:
     def dispatch_batch(self, frames_bucketed: np.ndarray,
                        orig_hw: Tuple[int, int]):
         """Upload + enqueue the fused step; -> handles for finish_batch."""
+        t0 = time.perf_counter()
         b, hb, wb = frames_bucketed.shape[:3]
         flat = self.pipe.upload_frames(frames_bucketed)
         packed = self.pipe.device_step_flat(flat, b, hb, wb, orig_hw,
                                             self.thre1)
+        self._tick("dispatch", t0)
         return packed, (b, hb, wb)
 
     def finish_batch(self, handles, orig_hw: Tuple[int, int]
@@ -74,7 +90,9 @@ class BatchedTranslatePipeline:
         """One device->host copy of the packed buffer -> grouping +
         features."""
         packed, (b, hb, wb) = handles
+        t0 = time.perf_counter()
         results, boxes, peaks = self.pipe.assemble(packed.cpu().numpy(), b)
+        self._tick("fetch_group", t0)
         return self._features(results, boxes, peaks,
                               orig_hw[0] / hb, orig_hw[1] / wb)
 
@@ -85,6 +103,7 @@ class BatchedTranslatePipeline:
                                                      orig_hw), orig_hw)
 
     def _features(self, results, boxes, peaks, sy, sx) -> List[np.ndarray]:
+        t0 = time.perf_counter()
         feats = []
         for fidx, (cand, subset) in enumerate(results):
             if cand.shape[0]:
@@ -94,6 +113,7 @@ class BatchedTranslatePipeline:
             hands = self.pipe.hands_for_frame(boxes, peaks, fidx, sy, sx)
             feats.append(F.frame_features(cand, subset, hands,
                                           self.model_type))
+        self._tick("featurize", t0)
         return feats
 
     def _make_emitter(self, out: List[Tuple[int, int, str, float]]):
@@ -110,9 +130,11 @@ class BatchedTranslatePipeline:
                     windows.append(np.stack(self._window))
                     widx.append(state["idx0"] + i)
             if windows:
+                t0 = time.perf_counter()
                 x = torch.from_numpy(np.stack(windows).astype(np.float32))
                 with torch.inference_mode():
                     probs = self.head(x.to(self.device)).cpu().numpy()
+                self._tick("head", t0)
                 for w, pr in zip(widx, probs):
                     cid = int(np.argmax(pr))
                     out.append((w, cid, EXPRESSIONS[cid], float(pr[cid])))
@@ -166,16 +188,20 @@ class BatchedTranslatePipeline:
         sy, sx = orig_hw[0] / hb, orig_hw[1] / wb
 
         def finish(packed, n_valid):
+            t0 = time.perf_counter()
             results, boxes, peaks = self.pipe.assemble(
                 packed.cpu().numpy(), self.batch)
+            self._tick("fetch_group", t0)
             emit(self._features(results, boxes, peaks, sy, sx)[:n_valid])
 
         pending = None
         for flat, n_valid in Prefetcher(
                 flat_batches(iter(flat_frames), self.batch), depth=2):
+            t0 = time.perf_counter()
             packed = self.pipe.device_step_flat(
                 self.pipe.upload_frames(flat), self.batch, hb, wb, orig_hw,
                 self.thre1, input_format="yuv420")
+            self._tick("dispatch", t0)
             if pending is not None:
                 finish(*pending)
             pending = (packed, n_valid)

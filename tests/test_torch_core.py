@@ -275,3 +275,48 @@ def test_build_rebuilds_on_a_changed_header(monkeypatch, tmp_path):
     assert builds() == 2
     assert builds("k.cu") == 3
     assert sorted(os.listdir(build)) == ["libk.so"]
+
+
+def test_true_f32_holds_while_any_thread_is_inside():
+    """Two threads' true_f32 blocks overlap, as a server's request forward
+    and its int8 calibration do: the first block leaves while the second
+    is still inside. The flags stay cleared until the last block leaves
+    and are restored then."""
+    import threading
+
+    from islx_torch.core.runtime import true_f32
+
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    before = flags()
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def first():
+        with true_f32():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def second():
+        a_in.wait(10)
+        with true_f32():
+            b_in.set()
+            a_out.wait(10)
+            seen["inside"] = flags()
+
+    try:
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(20)
+        assert seen["inside"] == (False, False)
+        assert flags() == (True, False)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before

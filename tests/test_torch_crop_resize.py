@@ -29,14 +29,20 @@ from islx.ops import resize as JR
 from islx_torch.ops import resize as TR
 
 # (frame H, frame W, crop size): the frames and crops that the port's tests
-# and chip_smoke.py cut, and the fused step's 184-row buckets of portrait
+# and chip_smoke.py cut (48x64 and 48x72: the serve test's 64x96 and 80x96
+# requests at target_h 48), and the fused step's 184-row buckets of portrait
 # 16:9 (104), square (184), 4:3 (248) and 3:2 (280) frames at both crop
 # sizes (portrait 4:3 is the 144 bucket, 16:9 the 328 one)
 SHAPES = [(48, 48, 92), (48, 48, 160), (48, 48, 184), (40, 56, 46),
-          (40, 56, 92), (184, 96, 92), (184, 144, 160), (184, 144, 184),
+          (40, 56, 92), (48, 64, 92), (48, 72, 92), (184, 96, 92),
+          (184, 144, 160), (184, 144, 184),
           (184, 328, 160), (184, 328, 184), (184, 104, 160), (184, 104, 184),
           (184, 184, 160), (184, 184, 184), (184, 248, 160), (184, 248, 184),
           (184, 280, 160), (184, 280, 184)]
+# every other 184-row bucket a server meets (``bucket_for`` at target_h 184:
+# 96 to 432 wide, 1:2 portrait to 21:9) at both crop sizes
+BUCKETS = [(184, w, size) for w in range(96, 433, 8) for size in (160, 184)
+           if (184, w, size) not in SHAPES]
 ORDERS = (TR.CHAIN, TR.EVEN_ODD, TR.MOD4)
 _jitted = jax.jit(JR.dynamic_crop_resize_batch, static_argnums=(5, 6))
 
@@ -82,7 +88,7 @@ def probe_orders(h, w, size) -> list:
     return found
 
 
-@pytest.mark.parametrize("h,w,size", SHAPES)
+@pytest.mark.parametrize("h,w,size", SHAPES + BUCKETS)
 def test_crop_resize_word_equal_to_islx_jitted(h, w, size):
     frames, boxes = _inputs(h, w, size)
     tb = [torch.from_numpy(b) for b in boxes]
@@ -111,7 +117,7 @@ def test_sum_order_is_the_one_order_with_islx_words(h, w, size):
 def test_unprobed_shape_warns():
     """A frame or crop size outside the table sums as a chain and says
     so; a probed one is silent."""
-    frames = torch.zeros(1, 184, 200, 3, dtype=torch.uint8)
+    frames = torch.zeros(1, 184, 204, 3, dtype=torch.uint8)   # no bucket
     box = [torch.zeros(1, dtype=torch.int32)] * 3 + [
         torch.full((1,), 9, dtype=torch.int32)]
     with pytest.warns(UserWarning, match="no probed summation order"):
@@ -122,13 +128,37 @@ def test_unprobed_shape_warns():
 
 
 def test_sum_orders_cover_both_dots_of_each_shape():
-    """Every shape of SHAPES has a probed order for both dots: (crop size,
-    W*C, H) for the first, (crop size * C, crop size, W) for the second;
-    the table holds no other shape."""
+    """Every shape of SHAPES and BUCKETS has a probed order for both dots:
+    (crop size, W*C, H) for the first, (crop size * C, crop size, W) for the
+    second; the table holds no other shape."""
     keys = set()
-    for h, w, size in SHAPES:
+    for h, w, size in SHAPES + BUCKETS:
         keys |= {(size, w * 3, h), (size * 3, size, w)}
     assert keys == set(TR.SUM_ORDER)
+
+
+@pytest.mark.parametrize("size", [160, 184])
+def test_every_serving_bucket_is_probed(size):
+    """Each 184-row bucket that ``bucket_for`` gives a frame from 1:2
+    portrait to 21:9 (every width a multiple of 8 from 96 to 432) has both
+    dots' keys in the table at both crop sizes, so a served request cuts
+    its crops without the unprobed-shape warning."""
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    widths = {bucket_for(h, w)[1] for h, w in
+              [(720, 360), (720, 1680), (1080, 1920), (480, 640),
+               (1920, 1080)]}
+    assert min(widths) >= 96 and max(widths) <= 432
+    for w in range(96, 433, 8):
+        assert (size, w * 3, 184) in TR.SUM_ORDER, w
+        assert (size * 3, size, w) in TR.SUM_ORDER, w
+    frames = torch.zeros(1, 184, 432, 3, dtype=torch.uint8)
+    box = [torch.zeros(1, dtype=torch.int32)] * 3 + [
+        torch.full((1,), 9, dtype=torch.int32)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for w in range(96, 433, 8):
+            TR.dynamic_crop_resize_batch(frames[:, :, :w], *box, size)
 
 
 if __name__ == "__main__":

@@ -77,3 +77,32 @@ def test_translate_frames_same_predictions(monkeypatch):
     np.testing.assert_array_equal(fw, fg)
     assert np.count_nonzero(fg[:, :30]) > 0       # body keypoints
     assert np.count_nonzero(fg[:, 30:]) > 0       # hand keypoints
+
+
+def test_stage_timers():
+    """``prof`` accumulates host seconds for islx's four stages, on the
+    BGR and the I420 stream, and changes no prediction."""
+    from islx_torch.ops.yuv import bgr_to_yuv420_host
+
+    tp = BatchedTranslatePipeline(
+        pose_cfg=PoseConfig(max_peaks=8), hand_cfg=HandConfig(
+            scale_search=(0.25,)), batch=10, compute_dtype=torch.float32,
+        device="cpu")
+    rng = np.random.RandomState(1)
+    frames = [(rng.rand(184, 96, 3) * 255).astype(np.uint8)
+              for _ in range(20)]
+    want = tp.translate_frames(iter(frames))
+    assert tp.prof is None
+    tp.prof = {}
+    got = tp.translate_frames(iter(frames))
+    assert [o[:3] for o in got] == [o[:3] for o in want]
+    assert [o[0] for o in got] == [19]
+    assert set(tp.prof) == {"dispatch", "fetch_group", "featurize", "head"}
+    assert all(v > 0 for v in tp.prof.values())
+    bgr = dict(tp.prof)
+    yuv = [bgr_to_yuv420_host(f[None]) for f in frames]
+    tp.prof = {}
+    got = tp.translate_yuv_frames(iter(yuv), (184, 96), (184, 96))
+    assert [o[0] for o in got] == [19]
+    assert set(tp.prof) == set(bgr)
+    assert all(v > 0 for v in tp.prof.values())
