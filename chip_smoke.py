@@ -64,6 +64,15 @@ Phases (any failure exits non-zero and the last line is never printed):
    pipeline quantized directly on the stored calibration frames; the NMS
    mask calls of the served batches held bit for bit against the plain
    version at every served shape; GET /healthz over HTTP;
+5c. dataset extraction (islx_torch.isl.extract) at full width from
+   memory: 48 seeded 184x328 frames, augmentation on (the card's rotated
+   frames word-equal to the CPU's), the serving phase's weights and
+   threshold rule; the fused path at batch 16 in bf16 and with int8 CPMs,
+   a resume after a third of the records are deleted (only those written
+   again, same bytes), two shards over four videos, and the exact
+   per-frame path over 8 frames; every record byte-equal to a direct
+   step's, every kernel call held against its plain version, frames/s a
+   leg (the fused legs once more unwatched, same bytes);
 6. the reference-parity path at full width in f32: ``ISLSignPos(Body,
    Hand)`` on a seeded 720x1280 frame and ``Hand`` on two 256x256 crops;
    the launch counters must show the NMS+first-K, PAF-sampling and
@@ -553,19 +562,23 @@ def paf_launch_split(row, body=None, frame=None) -> None:
     paf, pk = paf_inputs(gen, h, w, p, row["k"])
     args = (paf, pk.xy, pk.valid,
             PS.LimbTable(LIMB_SEQ_BODY25, MAP_IDX_BODY25), 0.05, 10, float(h))
-    pat = r"\b(paf_sample_kernel)\b"
+    pat = ("paf_sample_kernel",)
     flush = l2_flush()
-    row["launch_ms"] = launch_ms(lambda: PS.paf_sample(*args), pat)[
-        "paf_sample_kernel"]
-    row["cold_launch_ms"] = launch_ms(
-        lambda: (flush.zero_(), PS.paf_sample(*args)), pat)[
-            "paf_sample_kernel"]
-    msg = (f"phase-3 shape {row['launch_ms']:.4f}, L2 flushed before each "
-           f"{row['cold_launch_ms']:.4f}")
+    legs = {"launch_ms": ("phase-3 shape", lambda: PS.paf_sample(*args)),
+            "cold_launch_ms": ("L2 flushed before each", lambda: (
+                flush.zero_(), PS.paf_sample(*args)))}
     if body is not None:
-        row["body_launch_ms"] = launch_ms(lambda: body(frame), pat, reps=5)[
-            "paf_sample_kernel"]
-        msg += f", in a Body call {row['body_launch_ms']:.4f}"
+        legs["body_launch_ms"] = ("in a Body call", lambda: body(frame))
+    parts = []
+    for key, (label, fn) in legs.items():
+        got = launch_ms(fn, pat, reps=5 if key == "body_launch_ms" else 20)
+        row[key] = got["paf_sample_kernel"]
+        if "paf_sample_kernel_events" in got:
+            row[key.replace("_ms", "_events")] = got[
+                "paf_sample_kernel_events"]
+        parts.append(f"{label} " + ("not measured" if row[key] is None
+                                    else f"{row[key]:.4f}"))
+    msg = ", ".join(parts)
     log(f"  paf_sample device ms a launch: {msg}")
 
 
@@ -644,24 +657,37 @@ def tile_maps(rng, h, w, c, first=0) -> np.ndarray:
                     -1)
 
 
-def launch_ms(fn, pattern: str, reps: int = 20) -> dict:
-    """Device ms a call of each kernel whose name matches ``pattern`` (its
-    first group names it), from torch.profiler over ``reps`` calls."""
+def launch_ms(fn, names, reps: int = 20, tries: int = 3) -> dict:
+    """Device ms a launch of each kernel in ``names``, each launched once
+    by a call of ``fn``, from torch.profiler over ``reps`` calls: a
+    kernel's device time over the launches the trace recorded. Late in a
+    full run of this script a trace records fewer launches than were made,
+    and once recorded none: a trace with no launch of a kernel is taken
+    again, up to ``tries`` times. A kernel short of ``reps`` gets
+    ``"<name>_events"``, the launches recorded; one with none, None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        found = dict.fromkeys(names, (0, 0.0))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            hit = re.search(rf"\b({'|'.join(names)})\b", e.key)
+            if hit:
+                count, us = found[hit.group(1)]
+                found[hit.group(1)] = (count + e.count,
+                                       us + e.self_device_time_total)
+        if all(count for count, _ in found.values()):
+            break
     out: dict = {}
-    for e in prof.key_averages():
-        found = re.search(pattern, e.key)
-        if found:
-            name = found.group(1)
-            out[name] = (out.get(name, 0.0)
-                         + e.self_device_time_total / 1e3 / reps)
+    for name, (count, us) in found.items():
+        out[name] = us / 1e3 / count if count else None
+        if count != reps:
+            out[f"{name}_events"] = count
     return out
 
 
@@ -727,8 +753,10 @@ def cc_launch_split(rows) -> None:
     for row in rows:
         m = cc_map(row["shape"][0], row["field"])
         row["launch_ms"] = launch_ms(lambda: CC.label_components(m),
-                                     r"\b(cc_\w+)")
-        split = ", ".join(f"{k} {v:.4f}" for k, v in row["launch_ms"].items())
+                                     ("cc_tile", "cc_border", "cc_final"))
+        split = ", ".join(f"{k} {v}" if v is None or k.endswith("_events")
+                          else f"{k} {v:.4f}"
+                          for k, v in row["launch_ms"].items())
         log(f"  cc_label {row['shape']} {row['field']}: {split} ms")
 
 
@@ -1033,20 +1061,44 @@ def calibrate_thre1(pipe, flat, b, hb, wb, orig_hw) -> float:
     return thre1
 
 
+def quantize_on(bp, hp, frames, hand_cfg, device):
+    """Both nets quantized to int8 W8A8 with activation scales calibrated
+    on ``device`` on BGR u8 ``frames``, built as the CLIs' gate builds its
+    calibration batches (the frames at the 184-row bucket, their centre
+    squares at the hand size) but resized with the port's ``resize_cubic``:
+    the card's machine has no cv2, which the gate's ``calib_inputs``
+    needs. The checks that use these states hold the card against the
+    plain versions and the CPU on the same states, so which pixels
+    calibrated them does not matter -> (body, hand) states."""
+    from islx_torch.models import quant
+    from islx_torch.ops.resize import resize_cubic
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    f = torch.from_numpy(np.stack(frames))
+    h0, w0 = f.shape[1:3]
+    hb, wb = bucket_for(h0, w0, target_h=184)
+    hsize = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
+    s = min(h0, w0)
+    sq = f[:, (h0 - s) // 2:(h0 + s) // 2, (w0 - s) // 2:(w0 + s) // 2]
+    x, hx = (resize_cubic(t, n, n2, saturate_uint8=True).numpy()
+             / np.float32(256.0) - np.float32(0.5)
+             for t, n, n2 in ((f, hb, wb), (sq, hsize, hsize)))
+    return (quant.quantize_model(bp, "body25", [x], device=device),
+            quant.quantize_model(hp, "hand", [hx], device=device))
+
+
 def int8_states(hand_cfg, host, b, hb, wb, n=8):
     """The seeded full-width weights quantized to int8 W8A8 by the port's
-    calibration on the card, on the first ``n`` frames of the phase's own
-    I420 batch (decoded on the card), as the CLI's gate does on a clip's
-    frames -> (body, hand) states."""
-    from islx_torch.cli import quantize_states
+    calibration on the card (:func:`quantize_on`), on the first ``n``
+    frames of the phase's own I420 batch (decoded on the card) -> (body,
+    hand) states."""
     from islx_torch.core import weights as W
     from islx_torch.ops.yuv import frame_bytes, yuv420_to_bgr
 
     flat = torch.from_numpy(host[:n * frame_bytes(hb, wb)]).cuda()
     frames = yuv420_to_bgr(flat, n, hb, wb).to(torch.uint8).cpu().numpy()
-    return quantize_states(W.init_params("body25", 0),
-                           W.init_params("hand", 1), list(frames), hand_cfg,
-                           device="cuda")
+    return quantize_on(W.init_params("body25", 0), W.init_params("hand", 1),
+                       list(frames), hand_cfg, "cuda")
 
 
 def fused_setup(hand_cfg, b, orig_hw, device, pallas_nms=False,
@@ -1417,7 +1469,6 @@ def small_reference_check(int8: bool = False) -> None:
     resize sums alike on both devices), scores within f16. With
     ``int8``, both run the same int8 W8A8 states, calibrated on the CPU on
     the input's frames (the int8 CPMs are exact on both devices)."""
-    from islx_torch.cli import quantize_states
     from islx_torch.core import weights as W
     from islx_torch.core.config import HandConfig, PoseConfig
     from islx_torch.pipeline.batch_pose import FusedPosePipeline
@@ -1432,8 +1483,7 @@ def small_reference_check(int8: bool = False) -> None:
     frames = (np.random.RandomState(0).rand(2, 48, 48, 3) * 255
               ).astype(np.uint8)
     if int8:
-        bp, hp = quantize_states(bp, hp, list(frames), kw["hand_cfg"],
-                                 device="cpu")
+        bp, hp = quantize_on(bp, hp, list(frames), kw["hand_cfg"], "cpu")
     cpu = FusedPosePipeline(bp, hp, device="cpu", **kw)
     gpu = FusedPosePipeline(bp, hp, device="cuda", **kw)
     with torch.inference_mode():
@@ -1684,33 +1734,53 @@ def translation(hand_cfg, n_frames=48, batch=16, orig_hw=(720, 1280),
 SERVE_BUCKETS = ((184, 144), (184, 328))   # portrait 4:3 and 16:9 frames
 
 
+# every kernel wrapper with a launch counter, and its module
+KERNELS = (("nms_mask_rows", "islx_torch.ops.nms_mask"),
+           ("nms_first_k", "islx_torch.ops.nms_first_k"),
+           ("paf_sample", "islx_torch.ops.paf_sample"),
+           ("label_components", "islx_torch.ops.cc_label"),
+           ("conv_q", "islx_torch.ops.conv_q"),
+           ("quantize", "islx_torch.ops.conv_q"))
+
+
+def kernel_counts(names=None) -> dict:
+    """The launch counts of the kernel wrappers (all six by default)."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(mod), name).launches
+            for name, mod in KERNELS if names is None or name in names}
+
+
+def set_counts(counts: dict) -> None:
+    """Set the counters named in ``counts``."""
+    import importlib
+
+    for name, mod in KERNELS:
+        if name in counts:
+            getattr(importlib.import_module(mod), name).launches = \
+                counts[name]
+
+
 def serve_counts() -> dict:
     """The launch counts of the serving path's three kernels."""
-    from islx_torch.ops import conv_q as CQ
-    from islx_torch.ops import nms_mask as N
-
-    return {"nms_mask_rows": N.nms_mask_rows.launches,
-            "conv_q": CQ.conv_q.launches, "quantize": CQ.quantize.launches}
+    return kernel_counts(("nms_mask_rows", "conv_q", "quantize"))
 
 
 @contextlib.contextmanager
 def uncounted():
     """Launches made inside the block (a reference to compare with) are
     taken out of the counts again."""
-    from islx_torch.ops import conv_q as CQ
-    from islx_torch.ops import nms_mask as N
-
-    before = serve_counts()
+    before = kernel_counts()
     try:
         yield
     finally:
-        N.nms_mask_rows.launches = before["nms_mask_rows"]
-        CQ.conv_q.launches = before["conv_q"]
-        CQ.quantize.launches = before["quantize"]
+        set_counts(before)
 
 
 def delta(before: dict) -> dict:
-    return {k: v - before[k] for k, v in serve_counts().items()}
+    """The launches since ``before``, of the kernels it counts."""
+    now = kernel_counts()
+    return {k: now[k] - v for k, v in before.items()}
 
 
 def bgr_frames(rng, n, hb, wb) -> np.ndarray:
@@ -2121,6 +2191,385 @@ def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def watched_parity():
+    """Inside the block every nms_first_k, paf_sample and label_components
+    call of the parity path (from ops.peaks, ops.paf and ops.hand_peaks) is
+    held bit for bit against its plain version on the same inputs, and
+    must launch its kernel once; a mismatch raises RuntimeError. Yields
+    the calls checked, by kernel."""
+    from islx_torch.ops import cc_label as CC
+    from islx_torch.ops import hand_peaks as HP
+    from islx_torch.ops import nms_first_k as NF
+    from islx_torch.ops import paf as PF
+    from islx_torch.ops import paf_sample as PS
+    from islx_torch.ops import peaks as P
+
+    def words(a, b):
+        return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                               else x, y.view(torch.int32)
+                               if y.is_floating_point() else y)
+                   for x, y in zip(a, b))
+
+    seen = {"nms_first_k": 0, "paf_sample": 0, "label_components": 0}
+    plan = [(P, "nms_first_k", NF.nms_first_k, NF.nms_first_k_plain),
+            (PF, "paf_sample", PS.paf_sample, PS.paf_sample_plain),
+            (HP, "label_components", CC.label_components,
+             CC.label_components_plain)]
+
+    def watch(name, kern, plain):
+        def watched(*a, **k):
+            before = kern.launches
+            got = kern(*a, **k)
+            if kern.launches != before + 1:
+                raise RuntimeError(f"extraction: {name} launched "
+                                   f"{kern.launches - before} times")
+            want = plain(*a, **k)
+            pair = (got, want) if isinstance(got, tuple) else \
+                ((got,), (want,))
+            if not words(*pair):
+                raise RuntimeError(f"extraction: {name} differs from its "
+                                   f"plain version at "
+                                   f"{tuple(a[0].shape)}")
+            seen[name] += 1
+            return got
+        return watched
+
+    for mod, name, kern, plain in plan:
+        setattr(mod, name, watch(name, kern, plain))
+    try:
+        yield seen
+    finally:
+        for mod, name, kern, _ in plan:
+            setattr(mod, name, kern)
+
+
+def direct_records(pipe, items, batch, orig_hw) -> dict:
+    """idx -> (JSON text, feature vector) of a direct device_step_flat +
+    hands_for_frame + frame_features over ``items`` (idx, augmented frame),
+    batched and padded as extraction batches them (uncounted)."""
+    from islx_torch.isl import features as F
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    hb, wb = bucket_for(*orig_hw)
+    sy, sx = orig_hw[0] / hb, orig_hw[1] / wb
+    out = {}
+    with uncounted(), torch.inference_mode():
+        for i in range(0, len(items), batch):
+            chunk = items[i:i + batch]
+            arr = np.stack([f for _, f in chunk]
+                           + [chunk[0][1]] * (batch - len(chunk)))
+            packed = pipe.device_step_flat(pipe.upload_frames(arr), batch,
+                                           hb, wb, orig_hw)
+            results, boxes, peaks = pipe.assemble(packed, batch)
+            for j, (idx, _) in enumerate(chunk):
+                cand, subset = results[j]
+                if cand.shape[0]:
+                    cand = cand.copy()
+                    cand[:, 0] *= sx
+                    cand[:, 1] *= sy
+                hands = pipe.hands_for_frame(boxes, peaks, j, sy, sx)
+                out[idx] = (json.dumps({
+                    "candidate": cand.tolist(), "subset": subset.tolist(),
+                    "all_hand_peaks": [h.tolist() for h in hands]}),
+                    F.frame_features(cand, subset, hands))
+    return out
+
+
+def same_as_direct(root, video, rows, want) -> dict:
+    """Each written record of ``video`` byte-equal to the direct one and
+    each row's features equal -> {"records", "people", "hands"}."""
+    n = people = hands = 0
+    for row in rows:
+        idx = row["frame"]
+        with open(os.path.join(root, video, f"{idx:06d}.json")) as f:
+            text = f.read()
+        rec, feat = want[idx]
+        if text != rec:
+            raise SystemExit(f"extraction: {video} frame {idx}'s record "
+                             f"differs from a direct step's")
+        if not np.array_equal(np.array([row[f"f{i}"] for i in range(156)]),
+                              feat):
+            raise SystemExit(f"extraction: {video} frame {idx}'s features "
+                             f"differ from a direct step's")
+        r = json.loads(text)
+        n, people, hands = (n + 1, people + len(r["subset"]),
+                            hands + len(r["all_hand_peaks"]))
+    return {"records": n, "people": people, "hands": hands}
+
+
+def extraction_host_split(pipe, pipe_q, items, frames, cfg, hb, wb) -> dict:
+    """Where a fused leg's time goes (uncounted): the host's ms a frame to
+    augment (``_augment_frame`` on the CPU, the prefetch thread's work) and
+    to write a record (``save_frame``), and frames/s of the steps alone
+    (upload, device_step_flat, assemble, hands_for_frame) on the augmented
+    frames, bf16 and int8."""
+    from islx_torch.isl import extract as E
+
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        E._augment_frame(cfg, "split", i, f)
+    aug = (time.perf_counter() - t0) * 1e3 / len(frames)
+    arrs = [np.stack([f for _, f in items[i:i + 16]])
+            for i in range(0, len(items), 16)]
+    out = {"augment_ms_per_frame": aug}
+    with uncounted(), torch.inference_mode():
+        for name, p in (("bf16", pipe), ("int8", pipe_q)):
+            results = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for arr in arrs:
+                packed = p.device_step_flat(p.upload_frames(arr), 16, hb,
+                                            wb, (hb, wb))
+                people, boxes, peaks = p.assemble(packed, 16)
+                results += [(c, s, p.hands_for_frame(boxes, peaks, j))
+                            for j, (c, s) in enumerate(people)]
+            dt = time.perf_counter() - t0
+            out[f"steps_only_{name}_frames_per_s"] = len(items) / dt
+        t0 = time.perf_counter()
+        for (idx, f), (c, s, h) in zip(items, results):
+            E.save_frame(cfg, "split", idx, c, s, h, f)
+        out["save_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(
+            items)
+    return out
+
+
+def extraction(hand_cfg) -> dict:
+    """Dataset extraction (islx_torch.isl.extract) at full width on the
+    card, from memory (the machine has no cv2 to decode a clip): 48 seeded
+    184x328 frames (a bucket size, so no resize), augmentation on, the
+    serving phase's seeded weights and its thresholds' rule (thre2 -0.5,
+    thre1 from phase 4's rule lowered until people and hands form). Legs:
+    (a) the fused path at batch 16, bf16 and with int8 CPMs calibrated on
+    the frames (as phase 4c calibrates);
+    (b) a resume after a third of (a)'s records are deleted: only those
+    are written, with the same bytes; (c) two shards over four videos;
+    (d) the exact per-frame path (ISLSignPos) over 8 frames. Every record
+    is byte-equal to a direct step's on the same augmented frames, which
+    the card augments word-equal to the CPU; every kernel call of the legs
+    is held against its plain version; (a) is timed once more unwatched
+    and must write the same bytes. -> numbers, launches by kernel."""
+    import shutil
+    import tempfile
+
+    from islx_torch.core.config import HandConfig, PoseConfig
+    from islx_torch.isl import extract as E
+    from islx_torch.isl.translator import ISLSignPos
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.pose.body import Body
+    from islx_torch.ops.yuv import frame_bytes, yuv420_to_bgr
+    from islx_torch.pose.hand import Hand
+
+    hb, wb = 184, 328
+    host = seeded_i420(np.random.RandomState(11), 48, hb, wb)
+    frames = yuv420_to_bgr(torch.from_numpy(host).cuda(), 48, hb, wb).to(
+        torch.uint8).cpu().numpy()
+    bp, hp = parity_weights()
+
+    def cfg_for(root):
+        return E.ExtractConfig(out_root=root, augment=True)
+
+    pipe = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    with uncounted():
+        flat = pipe.upload_frames(host[:16 * frame_bytes(hb, wb)])
+        thre1 = calibrate_people(pipe, frames[:16], calibrate_thre1(
+            pipe, flat, 16, hb, wb, (hb, wb)))
+    tmp = tempfile.mkdtemp(prefix="islx_extract_")
+    side = int(round(hand_cfg.scale_search[0] * hand_cfg.boxsize))
+    res = {"frames": 48, "bucket": [hb, wb], "batch": 16, "thre1": thre1,
+           "thre2": -0.5, "hand": f"{side}px/s{hand_cfg.stages}",
+           "legs": {}}
+
+    def augmented(video, src):
+        """(idx, frame) augmented on the CPU, and word-equal on the card."""
+        cfg = cfg_for(tmp)
+        items = []
+        for i, f in enumerate(src):
+            cpu = E._augment_frame(cfg, video, i, f)
+            card = E._augment_frame(cfg, video, i, f, device="cuda")
+            if not np.array_equal(cpu, card):
+                raise SystemExit(f"extraction: frame {i} of {video} augments "
+                                 f"to other words on the card")
+            items.append((i, cpu))
+        return items
+
+    def leg(name, run, n_frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res["legs"][name] = {"frames": n_frames, "seconds": dt,
+                             "frames_per_s": n_frames / dt}
+        return out
+
+    try:
+        items = augmented("clip0", frames)
+        qb, qh = quantize_on(bp, hp, list(frames[:8]), hand_cfg, "cuda")
+        pipe_q = FusedPosePipeline(qb, qh, hand_cfg=hand_cfg,
+                                   compute_dtype=torch.bfloat16,
+                                   device="cuda")
+        for p in (pipe, pipe_q):
+            p.body.cfg = dataclasses.replace(p.body.cfg, thre1=thre1,
+                                             thre2=-0.5)
+        want = direct_records(pipe, items, 16, (hb, wb))
+        want_q = direct_records(pipe_q, items, 16, (hb, wb))
+        body = Body(bp, config=PoseConfig(thre1=thre1, thre2=-0.5),
+                    device="cuda")
+        hand = Hand(hp, config=HandConfig(), device="cuda")
+        pose = ISLSignPos(body, hand)
+        with uncounted():
+            want_x = {i: pose(f) for i, f in items[:8]}
+        set_counts({k: 0 for k in kernel_counts()})
+        checked = {"nms": 0, "convs": 0, "quantizes": 0}
+
+        def fused(root, p, video="clip0", src=frames):
+            return E._extract_batched(cfg_for(root), p, enumerate(src),
+                                      (hb, wb), video, 16)
+
+        a = os.path.join(tmp, "a")
+        with watched_nms() as nms:
+            rows = leg("fused_bf16", lambda: fused(a, pipe), 48)
+        checked["nms"] += nms["calls"]
+        res["legs"]["fused_bf16"].update(same_as_direct(a, "clip0", rows,
+                                                        want))
+        aq = os.path.join(tmp, "a_int8")
+        with watched_nms() as nms, watched_convs() as convs:
+            rows = leg("fused_int8", lambda: fused(aq, pipe_q), 48)
+        checked["nms"] += nms["calls"]
+        checked["convs"] += convs["convs"]
+        checked["quantizes"] += convs["quantizes"]
+        res["legs"]["fused_int8"].update(same_as_direct(aq, "clip0", rows,
+                                                        want_q))
+        unwatched = kernel_counts()
+        for name, p, root in (("fused_bf16", pipe, a),
+                              ("fused_int8", pipe_q, aq)):
+            again = root + "_unwatched"
+            leg(name + "_unwatched", lambda: fused(again, p), 48)
+            for i in range(48):
+                f = f"clip0/{i:06d}.json"
+                with open(os.path.join(root, f)) as x, \
+                        open(os.path.join(again, f)) as y:
+                    if x.read() != y.read():
+                        raise SystemExit(f"extraction: the unwatched "
+                                         f"{name} run wrote another {f}")
+        unwatched = delta(unwatched)
+        res["host"] = extraction_host_split(pipe, pipe_q, items, frames,
+                                            cfg_for(tmp), hb, wb)
+
+        # (b) resume: delete a third of (a)'s records, extract again
+        gone = list(range(0, 48, 3))
+        before = {}
+        for i in range(48):
+            path = os.path.join(a, "clip0", f"{i:06d}.json")
+            with open(path) as f:
+                before[i] = f.read()
+            if i in gone:
+                os.remove(path)
+            else:
+                os.utime(path, ns=(1, 1))
+        with watched_nms() as nms:
+            rows = leg("resume", lambda: fused(a, pipe), len(gone))
+        checked["nms"] += nms["calls"]
+        if sorted(r["frame"] for r in rows) != gone:
+            raise SystemExit(f"extraction: the resume extracted "
+                             f"{sorted(r['frame'] for r in rows)}, want "
+                             f"{gone}")
+        for i in range(48):
+            path = os.path.join(a, "clip0", f"{i:06d}.json")
+            with open(path) as f:
+                if f.read() != before[i]:
+                    raise SystemExit(f"extraction: resumed record {i} "
+                                     f"differs")
+            if (os.stat(path).st_mtime_ns == 1) == (i in gone):
+                raise SystemExit(f"extraction: the resume wrote record {i}"
+                                 if i not in gone else
+                                 f"extraction: the resume left record {i}")
+
+        # (c) two shards over four videos of 12 frames
+        videos = [(f"clip{v + 1}", frames[12 * v:12 * v + 12])
+                  for v in range(4)]
+        c = os.path.join(tmp, "c")
+        shards = {}
+        with watched_nms() as nms:
+            def run_shards():
+                for shard in (0, 1):
+                    rows = []
+                    for vid, src in E.shard_rows(videos, shard, 2):
+                        out = fused(c, pipe, vid, src)
+                        for r in out:
+                            r.update({"expression": "Hello"})
+                        rows += out
+                        shards.setdefault(shard, []).append((vid, out))
+                    E._write_csv(os.path.join(
+                        c, f"features-shard{shard}.csv"), rows)
+            leg("shards", run_shards, 48)
+        checked["nms"] += nms["calls"]
+        shard_tot = {"records": 0, "people": 0, "hands": 0}
+        for shard, vids in shards.items():
+            for vid, out in vids:
+                ref = direct_records(pipe, augmented(vid, dict(videos)[vid]),
+                                     16, (hb, wb))
+                got = same_as_direct(c, vid, out, ref)
+                for k in shard_tot:
+                    shard_tot[k] += got[k]
+        if [v for v, _ in videos[0::2]] != [v for v, _ in shards[0]]:
+            raise SystemExit("extraction: shard 0 took other videos")
+        res["legs"]["shards"].update(shard_tot)
+
+        # (d) the exact per-frame path over 8 frames
+        d = os.path.join(tmp, "d")
+        with watched_parity() as par:
+            rows = leg("exact", lambda: E._extract_frames(
+                cfg_for(d), pose, enumerate(frames[:8]), "clip0"), 8)
+        checked.update(par)
+        people = hands = 0
+        for row in rows:
+            i = row["frame"]
+            cand, subset, hs = want_x[i]
+            rec = json.dumps({"candidate": cand.tolist(),
+                              "subset": subset.tolist(),
+                              "all_hand_peaks": [h.tolist() for h in hs]})
+            with open(os.path.join(d, "clip0", f"{i:06d}.json")) as f:
+                if f.read() != rec:
+                    raise SystemExit(f"extraction: exact record {i} "
+                                     f"differs from a direct ISLSignPos "
+                                     f"call's")
+            people += len(subset)
+            hands += len(hs)
+        res["legs"]["exact"].update({"records": len(rows), "people": people,
+                                     "hands": hands})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernel_counts()
+    res["launches"] = launches
+    res["checked"] = checked
+    zero = [k for k, v in launches.items() if v <= 0]
+    if zero:
+        raise SystemExit(f"extraction: {zero} never launched: {launches}")
+    for name in ("fused_bf16", "fused_int8", "shards", "exact"):
+        if not (res["legs"][name]["people"] and res["legs"][name]["hands"]):
+            raise SystemExit(f"extraction: leg {name} formed no people or "
+                             f"no hands: {res['legs'][name]}")
+    res["unwatched_launches"] = unwatched
+    for key, name in (("nms", "nms_mask_rows"), ("convs", "conv_q"),
+                      ("quantizes", "quantize"),
+                      ("nms_first_k", "nms_first_k"),
+                      ("paf_sample", "paf_sample"),
+                      ("label_components", "label_components")):
+        if checked[key] != launches[name] - unwatched[name]:
+            raise SystemExit(f"extraction: {checked[key]} {name} calls "
+                             f"checked of {launches[name]} launched "
+                             f"({unwatched[name]} in the unwatched runs)")
+    log("  extraction legs (frames/s; checked legs hold every kernel call "
+        "against its plain version inside the run): " + ", ".join(
+            f"{k} {v['frames_per_s']:.1f}" for k, v in res["legs"].items()))
+    log(f"  extraction: {card_line()}; launches {launches}; checked "
+        f"{checked}; host split {res['host']}")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2269,6 +2718,10 @@ def main(argv=None) -> int:
     log("[5b] serving: micro-batcher, int8 swap and HTTP, full width")
     serve = serving(hand_cfg)
 
+    log("[5c] dataset extraction from memory, full width, augmented: fused "
+        "bf16 and int8, resume, two shards, exact")
+    extract = extraction(hand_cfg)
+
     log("[6] reference-parity path, full width, f32")
     parity, body, frame = parity_path()
     parity_small_check()
@@ -2282,6 +2735,8 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "serving_launches": serve["launches"].get(name, 0),
+                "extraction_launches": extract["launches"][
+                    "label_components" if name == "cc_label" else name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
                 "ms": bench["ms"], "plain_ms": bench["plain_ms"],
@@ -2306,7 +2761,8 @@ def main(argv=None) -> int:
               "islx/models/quant.py:63", step_q["quantize_launches"],
               quant_rows)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
-        "translation": trans, "serving": serve, "parity": parity,
+        "translation": trans, "serving": serve, "extraction": extract,
+        "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 

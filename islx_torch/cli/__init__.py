@@ -5,6 +5,22 @@ import json
 import os
 
 
+def gated_hand_cfg(hand_weights=None, log=None):
+    """The hand config of the checkpoint's recorded gate verdicts; the
+    ungated production default when no weights are given (a verdict
+    travels with the checkpoint it was recorded on)."""
+    from islx_torch.core.config import HandConfig
+
+    if hand_weights is None:
+        cfg, note = HandConfig.production(), "production default"
+    else:
+        cfg, note = HandConfig.gated(
+            os.path.dirname(os.path.abspath(hand_weights)))
+    if log is not None:
+        log(f"hand config: {note}")
+    return cfg
+
+
 def _calib_frames(calib_clip=None, calib_image=None, n: int = 2):
     """Up to ``n`` evenly spaced BGR u8 frames from the CLI's own input (the
     head of the clip, or the still image): the activation-calibration
@@ -33,24 +49,31 @@ def calib_inputs(frames, hand_cfg):
     """BGR u8 frames of one size -> (body batch [n,hb,wb,3], hand batch
     [n,s,s,3]) of normalized f32 net inputs (x/256 - 0.5): the frames
     resized to the body's 184-row bucket, and their centre squares to the
-    hand crop size, both cubic, rounded and saturated to u8 as a resize of
-    u8 frames is."""
+    hand crop size, with cv2's u8 ``INTER_CUBIC``, as islx's gate resizes
+    them (``islx/cli/__init__.py::gated_int8_params``). cv2 is needed
+    here; where it is missing this raises (a calibration on other pixels
+    would give other activation scales)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            "int8 calibration resizes its frames with cv2, as islx's gate "
+            "does, and cv2 is not installed") from e
     import numpy as np
-    import torch
 
-    from islx_torch.ops.resize import resize_cubic
     from islx_torch.pipeline.batch_pose import bucket_for
 
-    f = torch.from_numpy(np.stack([np.asarray(x) for x in frames]))
-    h0, w0 = f.shape[1:3]
+    h0, w0 = np.asarray(frames[0]).shape[:2]
     hb, wb = bucket_for(h0, w0, target_h=184)
     hsize = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
     s = min(h0, w0)
-    sq = f[:, (h0 - s) // 2:(h0 + s) // 2, (w0 - s) // 2:(w0 + s) // 2]
-    body = resize_cubic(f, hb, wb, saturate_uint8=True)
-    hand = resize_cubic(sq, hsize, hsize, saturate_uint8=True)
-    return (body.numpy() / np.float32(256.0) - np.float32(0.5),
-            hand.numpy() / np.float32(256.0) - np.float32(0.5))
+    xcal = np.stack([cv2.resize(f, (wb, hb), interpolation=cv2.INTER_CUBIC)
+                     for f in frames]).astype(np.float32) / 256.0 - 0.5
+    hcal = np.stack([cv2.resize(
+        f[(h0 - s) // 2:(h0 + s) // 2, (w0 - s) // 2:(w0 + s) // 2],
+        (hsize, hsize), interpolation=cv2.INTER_CUBIC)
+        for f in frames]).astype(np.float32) / 256.0 - 0.5
+    return xcal, hcal
 
 
 def quantize_states(body_params, hand_params, frames, hand_cfg,

@@ -65,7 +65,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    from islx_torch.cli.translate import gated_hand_cfg
+    from islx_torch.cli import gated_hand_cfg
     from islx_torch.core import weights as W
     from islx_torch.core.runtime import resolve_device
     from islx_torch.pipeline.batch_pose import FusedPosePipeline

@@ -1,15 +1,22 @@
-"""ISL translation on the GPU: video -> rolling-window sign predictions.
+"""ISL translation on the GPU: video -> rolling-window sign predictions
+(port of islx/cli/translate.py; reference demo_isl_translate.py).
 
-    python -m islx_torch.cli.translate VIDEO [--batch 16]
-        [--body-weights W] [--hand-weights W] [--head H.npz] [--device cuda]
+    python -m islx_torch.cli.translate VIDEO [--head H.keras|.h5|.npz]
+        [--body-weights W] [--hand-weights W] [--batched --batch 16]
+        [--camera] [--min-prob P] [--device cuda]
 
-The batched fused pipeline (islx_torch.pipeline.translate). Weights are
-islx ``.npz`` or reference ``.pt`` files; without them the nets run the
-port's seeded random init. The hand config follows the per-checkpoint gate
-(``gates.json`` beside ``--hand-weights``); a recorded int8 GO, or
-``ISLX_INT8=1``, quantizes both nets to int8 W8A8, calibrated on the head
-of the clip and cached under ``<weights dir>/.int8_cache``
-(:func:`islx_torch.cli.gated_int8_params`); ``ISLX_INT8=0`` keeps bf16.
+The default is the reference-exact per-frame path (``ISLTranslator``:
+``Body`` + ``Hand`` on each frame, its features cached in the 20-frame
+window). ``--batched`` runs the fused pipeline
+(islx_torch.pipeline.translate), whose hand config follows the
+per-checkpoint gate beside ``--hand-weights``; with both weight files
+given, a recorded int8 GO (or ``ISLX_INT8=1``) quantizes both nets,
+calibrated on the head of the clip and cached under ``<weights
+dir>/.int8_cache`` (:func:`islx_torch.cli.gated_int8_params`), as islx
+does; ``ISLX_INT8=0`` keeps bf16. Weights are islx ``.npz`` or reference
+``.pt`` files; without them the nets run the port's seeded random init.
+Clips are decoded with cv2, as is ``--camera``; ``.keras``/``.h5`` heads
+are read with h5py.
 """
 from __future__ import annotations
 
@@ -17,59 +24,118 @@ import argparse
 import os
 
 
-def gated_hand_cfg(hand_weights=None, log=None):
-    """The hand config of the checkpoint's recorded gate verdicts; the
-    ungated production default when no weights are given (a verdict
-    travels with the checkpoint it was recorded on)."""
-    from islx_torch.core.config import HandConfig
+def load_head(path):
+    """A head checkpoint (.keras, .h5 or islx .npz) -> params; None for
+    the seeded init."""
+    from islx_torch.models import translator as T
 
-    if hand_weights is None:
-        cfg, note = HandConfig.production(), "production default"
-    else:
-        cfg, note = HandConfig.gated(
-            os.path.dirname(os.path.abspath(hand_weights)))
-    if log is not None:
-        log(f"hand config: {note}")
-    return cfg
+    if path is None:
+        return None
+    if path.endswith((".keras", ".h5")):
+        return T.load_keras(path)
+    if path.endswith(".npz"):
+        return T.load_npz(path)
+    raise ValueError(f"unsupported head checkpoint: {path}")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("video")
-    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("video", nargs="?", default=None)
+    p.add_argument("--camera", action="store_true",
+                   help="read the webcam instead of a file (cv2)")
+    p.add_argument("--head", default=None,
+                   help="translator head checkpoint (.keras/.h5/.npz)")
+    p.add_argument("--bundle", default=None,
+                   help="not ported: one-model and checkpoint bundles wait "
+                        "for ROADMAP.md §1 items 6-7")
     p.add_argument("--body-weights", default=None)
     p.add_argument("--hand-weights", default=None)
-    p.add_argument("--head", default=None,
-                   help="translator head checkpoint (islx .npz)")
-    p.add_argument("--device", default="cuda")
     p.add_argument("--min-prob", type=float, default=0.0)
+    p.add_argument("--batched", action="store_true",
+                   help="the fused batched pipeline instead of the "
+                        "reference-exact per-frame path")
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--mesh-data", type=int, default=0, metavar="N",
+                   help="not ported: multi-device batches wait for "
+                        "ROADMAP.md §1 item 8")
+    p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if not os.path.exists(args.video):
-        p.error(f"no such video: {args.video}")
+    if args.bundle:
+        p.error("--bundle is not ported yet (the one-model and checkpoint "
+                "modules, ROADMAP.md §1 items 6-7)")
+    if args.mesh_data:
+        p.error("--mesh-data is not ported yet (multi-device, ROADMAP.md "
+                "§1 item 8)")
+    if not args.camera:
+        if args.video is None:
+            p.error("VIDEO is required unless --camera is given")
+        if not os.path.exists(args.video):
+            p.error(f"no such video: {args.video}")
 
-    from islx_torch.cli import gated_int8_params
     from islx_torch.core import weights as W
     from islx_torch.core.runtime import resolve_device
-    from islx_torch.models import translator as T
-    from islx_torch.pipeline.translate import BatchedTranslatePipeline
 
     device = resolve_device(args.device)
-    hand_cfg = gated_hand_cfg(args.hand_weights, log=print)
-    bp, hp, _ = gated_int8_params(
-        (W.load(args.body_weights, "body25") if args.body_weights
-         else W.init_params("body25")),
-        (W.load(args.hand_weights, "hand") if args.hand_weights
-         else W.init_params("hand")),
-        hand_weights=args.hand_weights, body_weights=args.body_weights,
-        hand_cfg=hand_cfg, calib_clip=args.video, log=print, device=device)
-    pipe = BatchedTranslatePipeline(
-        body_params=bp, hand_params=hp,
-        head_params=T.load_npz(args.head) if args.head else None,
-        hand_cfg=hand_cfg, batch=args.batch, device=device)
-    for idx, cid, expr, prob in pipe.translate_video(args.video):
+    head_params = load_head(args.head)
+
+    def show(idx, cid, expr, prob):
         if prob >= args.min_prob:
             print(f"{idx} {prob:0.4f} {cid}-{expr}")
+
+    if args.batched and not args.camera:
+        from islx_torch.cli import gated_hand_cfg, gated_int8_params
+        from islx_torch.pipeline.translate import BatchedTranslatePipeline
+
+        bp = (W.load(args.body_weights, "body25") if args.body_weights
+              else None)
+        hp = (W.load(args.hand_weights, "hand") if args.hand_weights
+              else None)
+        hand_cfg = gated_hand_cfg(args.hand_weights, log=print)
+        if bp is not None and hp is not None:
+            # a recorded int8 GO -> W8A8 CPMs, calibrated on the head of
+            # this clip (cached a checkpoint)
+            bp, hp, _ = gated_int8_params(
+                bp, hp, hand_weights=args.hand_weights,
+                body_weights=args.body_weights, hand_cfg=hand_cfg,
+                calib_clip=args.video, log=print, device=device)
+        pipe = BatchedTranslatePipeline(
+            body_params=bp, hand_params=hp, head_params=head_params,
+            hand_cfg=hand_cfg, batch=args.batch, device=device)
+        for pred in pipe.translate_video(args.video):
+            show(*pred)
+        return
+
+    from islx_torch.isl.translator import ISLTranslator
+    from islx_torch.pose.body import Body
+    from islx_torch.pose.hand import Hand
+
+    translator = ISLTranslator(
+        Body(args.body_weights, "body25", device=device),
+        Hand(args.hand_weights, device=device), head_params)
+    if args.camera:
+        import cv2
+
+        cap = cv2.VideoCapture(0)
+        idx = 0
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                probs = translator.push(frame)
+                if probs is not None:
+                    show(idx, *translator.top_expression(probs))
+                idx += 1
+        finally:
+            cap.release()
+        return
+
+    from islx_torch.pipeline.video import FrameSource
+
+    with FrameSource(args.video) as src:
+        for pred in translator.translate_video_frames(src):
+            show(*pred)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,9 @@ across as they are.
 """
 from __future__ import annotations
 
+import io
+import json
+import zipfile
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -62,6 +65,13 @@ def init_params(cfg: TranslatorConfig = TranslatorConfig(),
             for name, e in params.items()}
 
 
+def save_npz(path: str, params: Params) -> None:
+    """The head as an islx ``.npz`` checkpoint (``{layer}/{name}`` keys)."""
+    flat = {f"{name}/{k}": np.asarray(v)
+            for name, entry in params.items() for k, v in entry.items()}
+    np.savez(path, **flat)
+
+
 def load_npz(path: str) -> Params:
     """islx head checkpoint (``islx.models.translator.save_npz``)."""
     params: Params = {}
@@ -70,6 +80,111 @@ def load_npz(path: str) -> Params:
             name, k = key.split("/")
             params.setdefault(name, {})[k] = np.asarray(data[key])
     return params
+
+
+# ---------------------------------------------------------------- keras I/O
+#
+# The weighted layers of the reference's keras head, in model order
+# (Masking, Dropout and Activation carry no weights): bn0, bilstm1,
+# bilstm2, dense1, bn1, dense2, bn2, dense3.
+_LAYER_ORDER = ["bn0", ("lstm1_fwd", "lstm1_bwd"), ("lstm2_fwd", "lstm2_bwd"),
+                "dense1", "bn1", "dense2", "bn2", "dense3"]
+
+
+def from_keras_weights(weight_lists: list) -> Params:
+    """Params from keras ``get_weights()`` lists, one a weighted layer in
+    model order. BN = [gamma, beta, mean, var]; a bidirectional LSTM =
+    [fwd kernel, fwd recurrent, fwd bias, bwd kernel, bwd recurrent, bwd
+    bias]; Dense = [kernel(, bias)]."""
+    params: Params = {}
+    for ours, ws in zip(_LAYER_ORDER, weight_lists):
+        ws = [np.asarray(w) for w in ws]
+        if isinstance(ours, tuple):
+            fwd, bwd = ours
+            params[fwd] = dict(zip(("kernel", "recurrent", "bias"), ws[:3]))
+            params[bwd] = dict(zip(("kernel", "recurrent", "bias"), ws[3:]))
+        elif ours.startswith("bn"):
+            params[ours] = dict(zip(("gamma", "beta", "mean", "var"), ws))
+        else:
+            params[ours] = dict(zip(("kernel", "bias"), ws))
+    return params
+
+
+def to_keras_weights(params: Params) -> list:
+    """Inverse of :func:`from_keras_weights`: the ``get_weights()`` lists
+    of each weighted layer (the head in the reference's keras stack)."""
+    out = []
+    for ours in _LAYER_ORDER:
+        if isinstance(ours, tuple):
+            out.append([np.asarray(params[name][k]) for name in ours
+                        for k in ("kernel", "recurrent", "bias")])
+        elif ours.startswith("bn"):
+            out.append([np.asarray(params[ours][k])
+                        for k in ("gamma", "beta", "mean", "var")])
+        else:
+            out.append([np.asarray(params[ours][k])
+                        for k in ("kernel", "bias") if k in params[ours]])
+    return out
+
+
+def _saved_vars(group) -> list:
+    """A keras 3 layer group's variables in ``get_weights()`` order: its
+    own ``vars/0..n``, then a wrapper's forward and backward layers."""
+    ws = []
+    if "vars" in group:
+        ws += [np.asarray(group["vars"][k])
+               for k in sorted(group["vars"], key=int)]
+    for sub in ("forward_layer", "backward_layer", "cell"):
+        if sub in group:
+            ws += _saved_vars(group[sub])
+    return ws
+
+
+def _str(name) -> str:
+    return name.decode() if isinstance(name, bytes) else str(name)
+
+
+def _keras_weight_lists(path: str) -> list:
+    """The ``get_weights()`` list of every weighted layer of a saved keras
+    model, in model order, read with h5py: a keras 3 ``.keras`` archive
+    (the layer order from its ``config.json``, the variables from its
+    ``model.weights.h5``) or a legacy HDF5 ``.h5`` (``layer_names`` and
+    ``weight_names``). keras itself is not imported: keras 3 imports JAX
+    (its orbax callback, and tensorflow.lite under the tensorflow
+    backend), which the port never imports."""
+    import h5py
+
+    out = []
+    if zipfile.is_zipfile(path):
+        with zipfile.ZipFile(path) as z:
+            config = json.loads(z.read("config.json"))
+            weights = io.BytesIO(z.read("model.weights.h5"))
+        names = [layer["config"]["name"]
+                 for layer in config["config"]["layers"]]
+        with h5py.File(weights, "r") as f:
+            for name in names:
+                group = f.get(f"layers/{name}")
+                ws = _saved_vars(group) if group is not None else []
+                if ws:
+                    out.append(ws)
+        return out
+    with h5py.File(path, "r") as f:
+        root = f["model_weights"] if "model_weights" in f else f
+        for name in root.attrs["layer_names"]:
+            group = root[_str(name)]
+            ws = [np.asarray(group[_str(w)])
+                  for w in group.attrs["weight_names"]]
+            if ws:
+                out.append(ws)
+    return out
+
+
+def load_keras(path: str) -> Params:
+    """A reference-trained ``.keras``/``.h5`` head checkpoint (reference
+    demo_isl_translate.py:100), read with h5py
+    (:func:`_keras_weight_lists`); where h5py is missing, as on a machine
+    with only PyTorch, convert the head to ``.npz`` on one that has it."""
+    return from_keras_weights(_keras_weight_lists(path))
 
 
 def _lstm(p: Mapping[str, torch.Tensor], xs: torch.Tensor,

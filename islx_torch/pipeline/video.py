@@ -47,11 +47,14 @@ def probe(path: str) -> VideoMeta:
 
 
 class FrameSource:
-    """Iterate BGR u8 frames from a video file (cv2.VideoCapture)."""
+    """Iterate BGR u8 frames from a video file (cv2.VideoCapture);
+    ``meta`` holds the frame size (:func:`probe`)."""
 
     def __init__(self, path: str):
         import cv2
 
+        self.path = path
+        self.meta = probe(path)
         self._cap = cv2.VideoCapture(path)
 
     def __iter__(self) -> Iterator[np.ndarray]:

@@ -18,6 +18,18 @@ from islx.models import cpm as JC
 from islx_torch.core import config as TCfg
 from islx_torch.core import weights as W
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -136,6 +148,34 @@ def test_port_imports_no_jax_or_islx():
         assert _FORBIDDEN.search(line), line
     for line in ("import islx_torch", "from islx_torch.ops import paf"):
         assert not _FORBIDDEN.search(line), line
+
+
+def test_port_modules_import_no_jax_or_islx():
+    """Every module of islx_torch, imported in a fresh process, brings in
+    no jax and nothing of islx (sys.modules after the imports)."""
+    import subprocess
+    import sys
+
+    names = []
+    for root, _, files in os.walk(os.path.join(REPO, "islx_torch")):
+        for n in files:
+            if n.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, n), REPO)[:-3]
+                names.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    assert {"islx_torch.isl.extract", "islx_torch.ops.augment",
+            "islx_torch.utils.draw", "islx_torch.cli.extract",
+            "islx_torch.cli.translate"} <= set(names)
+    code = ("import importlib, json, sys\n"
+            f"for n in {sorted(names)!r}: importlib.import_module(n)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'islx' "
+            "or m.startswith('islx.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _no_gpu(monkeypatch):

@@ -28,6 +28,19 @@ import jax.numpy as jnp
 from islx.ops import resize as JR
 from islx_torch.ops import resize as TR
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (frame H, frame W, crop size): the frames and crops that the port's tests
 # and chip_smoke.py cut (48x64 and 48x72: the serve test's 64x96 and 80x96
 # requests at target_h 48), and the fused step's 184-row buckets of portrait

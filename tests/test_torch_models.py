@@ -18,6 +18,18 @@ _CD = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
                                                      torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(model_type, seed):
     return jax.tree.map(np.asarray,
                         JC.init_params(model_type, jax.random.PRNGKey(seed)))

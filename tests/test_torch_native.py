@@ -18,6 +18,18 @@ from islx_torch.ops.paf import LIMB_SEQ_BODY25, LIMB_SEQ_COCO
 from islx_torch.pipeline import batch_pose as TBP
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_batch(rng, b=6, k=16, c=25, l_tab=LIMB_SEQ_BODY25, m=48):
     """tests/test_native.py's tables: counts 0-5 a channel, sorted
     connection lists with about half the pairs present."""

@@ -22,6 +22,18 @@ from islx_torch.ops import resize as TR
 from islx_torch.ops import yuv as TY
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_yuv420_to_bgr_exact(rng):
     """Integer-valued output: exactly equal, including clip at 0 and 255."""
     b, h, w = 3, 24, 34

@@ -10,6 +10,18 @@ import jax.numpy as jnp
 from islx.ops import paf as JP
 from islx_torch.ops import paf_sample as PS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 @pytest.mark.parametrize("mid_num", [1, 2, 3, 7, 10, 11])
 def test_kernel_sample_positions_are_samples_t(mid_num):
     """The kernel computes t[m] as ``m * step`` with one f32 rounding and an

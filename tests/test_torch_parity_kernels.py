@@ -23,6 +23,18 @@ from chip_smoke import tile_maps
 from test_torch_gpu import cc_maps
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _maps(rng, b, c, h, w, shift):
     """Seeded maps with a 3x3 plateau, a row at 0.7 along the top border,
     an empty channel (sentinels) and a negative shift, so thre1 <= 0 sees

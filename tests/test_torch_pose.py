@@ -46,6 +46,18 @@ from islx_torch.pose.detector import hand_detect
 from islx_torch.pose.hand import Hand
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blobby(rng, h, w, c, n_lo=1, n_hi=4, amp=0.9):
     """Gaussian blobs at fractional centres plus a small tie breaker (as
     tests/test_pose_parity.py builds them)."""

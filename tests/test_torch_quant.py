@@ -24,6 +24,18 @@ from islx_torch.models import quant as TQ
 from islx_torch.ops import conv_q as CQ
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(a) -> np.ndarray:
     """An array's bits as unsigned ints of its width (bf16 via f32)."""
     a = np.asarray(a)

@@ -31,6 +31,18 @@ from islx_torch.core.config import HandConfig, PoseConfig
 from islx_torch.ops import conv_q as CQ
 from islx_torch.pipeline import batch_pose as TBP
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 POSE = dict(max_peaks=8, thre2=-0.5)
 B, HB, WB = 2, 48, 48
 
@@ -54,6 +66,20 @@ def quantized(frames):
     x = frames.astype(np.float32) / 256.0 - 0.5
     return (jax.tree.map(np.asarray, JQ.quantize_model(body, "body25", [x])),
             jax.tree.map(np.asarray, JQ.quantize_model(hand, "hand", [x])))
+
+
+@pytest.fixture(scope="module")
+def steps(quantized, frames):
+    """:func:`_steps` by hand config, each run once a module (the crop
+    test reads the 160 px / 5 stage step of the word-equality test)."""
+    done = {}
+
+    def get(size, stages):
+        if (size, stages) not in done:
+            done[size, stages] = _steps(quantized, frames, size, stages)
+        return done[size, stages]
+
+    return get
 
 
 def _steps(quantized, frames, size, stages):
@@ -87,11 +113,10 @@ def _steps(quantized, frames, size, stages):
 
 
 @pytest.mark.parametrize("size,stages", [(160, 5), (184, 6)])
-def test_int8_fused_step_word_equal(monkeypatch, quantized, frames, size,
-                                    stages):
+def test_int8_fused_step_word_equal(monkeypatch, steps, size, stages):
     monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
     monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
-    want, got = _steps(quantized, frames, size, stages)
+    want, got = steps(size, stages)
     planes, gplanes = _planes(want), _planes(got)
     for name, wpl in planes.items():
         if name in ("score", "cscore"):
@@ -108,7 +133,7 @@ def test_int8_fused_step_word_equal(monkeypatch, quantized, frames, size,
     assert (planes["hand_xy"] != 0).sum() >= 10
 
 
-def test_crop_rounding_is_the_only_hand_difference(monkeypatch, quantized,
+def test_crop_rounding_is_the_only_hand_difference(monkeypatch, steps,
                                                    frames):
     """The crops that islx's unchanged step (160 px / 5 stages) cuts from
     its hand boxes, and that its int8 hand CPM amplifies a rounding apart
@@ -119,7 +144,7 @@ def test_crop_rounding_is_the_only_hand_difference(monkeypatch, quantized,
 
     monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
     monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
-    want, got = _steps(quantized, frames, 160, 5)
+    want, got = steps(160, 5)
     planes, gplanes = _planes(want), _planes(got)
     for name in ("xy", "count", "pair", "ok", "boxes", "hand_xy",
                  "hand_found"):

@@ -39,6 +39,18 @@ from islx_torch.serve import MicroBatcher, PoseServer
 pytestmark = pytest.mark.filterwarnings(
     "error:dynamic_crop_resize_batch:UserWarning")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 HAND = dict(scale_search=(0.25,))        # 92 px crops
 
 

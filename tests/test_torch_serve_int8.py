@@ -16,6 +16,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from islx.models import quant as JQ
 from islx.pipeline import batch_pose as JBP
@@ -28,6 +29,18 @@ from test_torch_serve import (_frames, _islx_pipe, _port_pipe, _record_steps,
 
 pytestmark = pytest.mark.filterwarnings(
     "error:dynamic_crop_resize_batch:UserWarning")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _swap_then_serve(batcher, first, then):

@@ -3,6 +3,7 @@ against islx's on the same frames and the same full-width body, hand and
 head weights, in f32: the same 156-d features for every frame, and the same
 (frame_idx, class_id) predictions."""
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -17,6 +18,18 @@ from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig, PoseConfig
 from islx_torch.pipeline.translate import BatchedTranslatePipeline
 from islx_torch.pipeline.video import FrameBatcher
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: the suite runs several test
+    processes at once on the host's cores, and more threads a process
+    oversubscribe them (six concurrent copies of a torch-only test ran
+    ~10x slower with the default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def record_features(pipe):
