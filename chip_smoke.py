@@ -73,6 +73,17 @@ Phases (any failure exits non-zero and the last line is never printed):
    per-frame path over 8 frames; every record byte-equal to a direct
    step's, every kernel call held against its plain version, frames/s a
    leg (the fused legs once more unwatched, same bytes);
+5d. training at full width: the translator head (default config, batch
+   32) on windows built from 5c's records by isl/dataset.build_windows,
+   fit for 4 epochs, interrupted after one and resumed (bit-equal to an
+   uninterrupted run), saved as .npz and in a bundle and reloaded through
+   cli/translate's loaders (the same probabilities); BODY_25 and the hand
+   CPM through cli/pose_train._train_flat on 8 seeded 184x184 samples at
+   batch 8, f32 and bf16, 6 steps each (the loss falls on the fixed
+   batch), the hand once more deep-supervised with pos_weight 2; on one
+   batch the card's loss and gradients against the CPU's (the CPMs' on
+   64x64 corners); ms/step, samples/s and peak memory beside the card
+   line; no kernel of the port launches (training runs none);
 6. the reference-parity path at full width in f32: ``ISLSignPos(Body,
    Hand)`` on a seeded 720x1280 frame and ``Hand`` on two 256x256 crops;
    the launch counters must show the NMS+first-K, PAF-sampling and
@@ -108,9 +119,11 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2334,7 +2347,7 @@ def extraction_host_split(pipe, pipe_q, items, frames, cfg, hb, wb) -> dict:
     return out
 
 
-def extraction(hand_cfg) -> dict:
+def extraction(hand_cfg, records_to: str) -> dict:
     """Dataset extraction (islx_torch.isl.extract) at full width on the
     card, from memory (the machine has no cv2 to decode a clip): 48 seeded
     184x328 frames (a bucket size, so no resize), augmentation on, the
@@ -2348,10 +2361,9 @@ def extraction(hand_cfg) -> dict:
     is byte-equal to a direct step's on the same augmented frames, which
     the card augments word-equal to the CPU; every kernel call of the legs
     is held against its plain version; (a) is timed once more unwatched
-    and must write the same bytes. -> numbers, launches by kernel."""
-    import shutil
-    import tempfile
-
+    and must write the same bytes. The records of (a) and (c) are copied to
+    ``records_to`` (phase 5d trains on them). -> numbers, launches by
+    kernel."""
     from islx_torch.core.config import HandConfig, PoseConfig
     from islx_torch.isl import extract as E
     from islx_torch.isl.translator import ISLSignPos
@@ -2540,6 +2552,11 @@ def extraction(hand_cfg) -> dict:
             hands += len(hs)
         res["legs"]["exact"].update({"records": len(rows), "people": people,
                                      "hands": hands})
+        shutil.copytree(os.path.join(a, "clip0"),
+                        os.path.join(records_to, "clip0"))
+        for vid, _ in videos:
+            shutil.copytree(os.path.join(c, vid),
+                            os.path.join(records_to, vid))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = kernel_counts()
@@ -2567,6 +2584,338 @@ def extraction(hand_cfg) -> dict:
             f"{k} {v['frames_per_s']:.1f}" for k, v in res["legs"].items()))
     log(f"  extraction: {card_line()}; launches {launches}; checked "
         f"{checked}; host split {res['host']}")
+    return res
+
+
+# Phase 5d: training. Sizes are the CLIs' defaults: the head at batch 32
+# (islx_torch.cli.train), the CPMs at --size 184 and --batch 8
+# (islx_torch.cli.pose_train).
+HEAD_LABELS = ("Hello", "Bank", "Book", "Money", "House", "Friend", "Pen",
+               "Night")
+
+
+def head_windows(records: str, work: str, seed: int = 0):
+    """Training windows from phase 5c's records: every run of up to 20
+    consecutive records of each extracted video becomes a video of its own
+    (96 of them), labelled with a seeded expression a video; then
+    isl/dataset.build_windows. -> (x, y, labels)."""
+    from islx_torch.isl import dataset as D
+
+    rng = np.random.RandomState(seed)
+    labels = {}
+    for vid in sorted(os.listdir(records)):
+        files = sorted(f for f in os.listdir(os.path.join(records, vid))
+                       if f.endswith(".json"))
+        for s in range(len(files)):
+            name = f"{vid}_{s:02d}"
+            os.makedirs(os.path.join(work, name))
+            for j, f in enumerate(files[s:s + 20]):
+                shutil.copy(os.path.join(records, vid, f),
+                            os.path.join(work, name, f"{j:06d}.json"))
+            labels[name] = HEAD_LABELS[rng.randint(len(HEAD_LABELS))]
+    x, y = D.build_windows(work, labels)
+    return x, y, labels
+
+
+def grads_of(module) -> dict:
+    return {n: p.grad.detach().float().cpu().numpy()
+            for n, p in module.named_parameters()}
+
+
+def grads_close(got: dict, want: dict, f32: bool) -> dict:
+    """The card's CPM gradient against the CPU's, as one vector: f32
+    within 1e-2 in norm and cosine >= 0.9999; bf16 within 0.2 and cosine
+    >= 0.98. A gradient through ReLUs and max-pools is not continuous: an
+    f32 rounding apart flips a unit near zero or a near-tie in a pool
+    window, and one tensor's largest error can be 1.5e-2 of its largest
+    magnitude (the CPU's own f32 gradient is up to 1e-2 from its f64 one
+    in a tensor, 3-4e-4 in norm); bf16 rounding alone moves a gradient
+    0.04-0.15 at the CPU tests' sizes (tests/test_torch_pose_train.py).
+    -> the measured errors."""
+    a = np.concatenate([got[k].ravel() for k in sorted(want)])
+    b = np.concatenate([want[k].ravel() for k in sorted(want)])
+    cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+    nrel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    worst = max(float(np.abs(got[k] - w).max() / max(np.abs(w).max(),
+                                                      1e-30))
+                for k, w in want.items())
+    ok = (nrel <= 1e-2 and cos >= 0.9999) if f32 else \
+        (nrel <= 0.2 and cos >= 0.98)
+    if not ok:
+        raise SystemExit(f"training: {'f32' if f32 else 'bf16'} card "
+                         f"gradient {nrel:.3g} in norm from the CPU's "
+                         f"(cos {cos:.6f})")
+    return {"norm_rel_err": nrel, "cos": cos, "max_rel_err": worst}
+
+
+def device_ms_per_step(step, reps: int = 2) -> dict:
+    """``reps`` calls of ``step`` under torch.profiler: the device ms of a
+    step (its kernels and copies) and its device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in ops) / 1e3 / reps
+    if device_ms <= 0:
+        raise SystemExit("training profile: the trace holds no device time")
+    return {"device_ms": device_ms, "device_ops": len(ops) / reps}
+
+
+def head_training(records: str, work: str) -> dict:
+    """The translator head, default TranslatorConfig (dropout 0.2), on the
+    card: fit for 4 epochs at batch 32 interrupted after one epoch and
+    resumed (bit-equal to an uninterrupted run, which is timed); the head
+    saved as .npz and in a bundle and loaded back through cli/translate's
+    loaders (the same probabilities as the head in memory); one batch's
+    loss and gradients at dropout 0 on the card against the CPU."""
+    from islx_torch.cli import translate as translate_cli
+    from islx_torch.core import checkpoint as ckpt
+    from islx_torch.core import weights as W
+    from islx_torch.core.config import TranslatorConfig
+    from islx_torch.isl import train as TR
+    from islx_torch.models import translator as T
+
+    x, y, labels = head_windows(records, os.path.join(work, "windows"))
+    if x.shape[0] < 64:
+        raise SystemExit(f"training: {x.shape[0]} windows from the records")
+    kw = dict(epochs=4, batch_size=32, lr=1e-3, cfg=TranslatorConfig(),
+              seed=0, verbose=False, device="cuda")
+    ck = os.path.join(work, "ck")
+    TR.fit(x, y, **{**kw, "epochs": 1}, checkpoint_dir=ck)   # interrupted
+    resumed = TR.fit(x, y, **kw, checkpoint_dir=ck)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TR.fit(x, y, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    diff = [f"{n}/{k}" for n in params for k in params[n]
+            if not np.array_equal(params[n][k], resumed[n][k])]
+    if diff:
+        raise SystemExit(f"training: the resumed head differs from the "
+                         f"uninterrupted one at {diff}")
+    steps = kw["epochs"] * (x.shape[0] // 32)
+
+    npz = os.path.join(work, "head.npz")
+    T.save_npz(npz, params)
+    bp, hp = W.init_params("body25", 0), W.init_params("hand", 1)
+    ckpt.save_bundle(os.path.join(work, "bundle"), bp, hp, params)
+    xs = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        want = T.build_head(params, "cuda")(xs)
+        from_npz = T.build_head(translate_cli.load_head(npz), "cuda")(xs)
+        b_body, b_hand, b_head, _ = ckpt.load_bundle(
+            os.path.join(work, "bundle"))
+        from_bundle = T.build_head(b_head, "cuda")(xs)
+    if not (torch.equal(from_npz, want) and torch.equal(from_bundle, want)):
+        raise SystemExit("training: a reloaded head predicts otherwise")
+    if not all(torch.equal(b_body[n][k], bp[n][k]) for n in bp
+               for k in bp[n]):
+        raise SystemExit("training: the bundle's body weights differ")
+
+    # one batch at dropout 0, card against CPU
+    cfg0 = TranslatorConfig(dropout=0.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        head = T.from_islx_params(params, dev, cfg0)
+        loss, _ = TR.loss_fn(head, torch.from_numpy(x[:32]).to(dev),
+                             torch.from_numpy(y[:32]).to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), grads_of(head))
+    if abs(out["cuda"][0] - out["cpu"][0]) > 1e-5 * abs(out["cpu"][0]):
+        raise SystemExit(f"training: head loss {out['cuda'][0]} on the "
+                         f"card, {out['cpu'][0]} on the CPU")
+    worst = max(float(np.abs(out["cuda"][1][k] - g).max()
+                      / max(np.abs(g).max(), 1e-30))
+                for k, g in out["cpu"][1].items())
+    if not worst <= 1e-4:
+        raise SystemExit(f"training: head gradients {worst:.3g} of their "
+                         f"largest magnitude from the CPU's")
+    ms = 1e3 * dt / steps
+    state = TR.init_state(kw["cfg"], 1e-3, params, device="cuda")
+    step = TR.make_train_step(state)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xb, yb = xs[:32], torch.from_numpy(y[:32].astype(np.int64)).cuda()
+    step(xb, yb, gen)
+    prof = device_ms_per_step(lambda: step(xb, yb, gen))
+    return {"windows": int(x.shape[0]), "videos": len(labels),
+            "classes": len(set(y.tolist())), "epochs": kw["epochs"],
+            "batch": 32, "steps": steps, "ms_per_step": ms,
+            "samples_per_s": 32 * steps / dt, "peak_mib": peak / 2 ** 20,
+            **prof, "device_busy_share": prof["device_ms"] / ms,
+            "resume_bit_equal": True, "reload_equal": True,
+            "card_vs_cpu": {"loss": out["cuda"][0], "cpu_loss": out["cpu"][0],
+                            "max_rel_err": worst}}
+
+
+def pose_samples(root: str, model_type: str, n: int = 8, size: int = 184,
+                 seed: int = 0) -> str:
+    """n seeded u8 BGR samples of size x size (no resize, so no cv2) with
+    two people's keypoints each, in the pose CLI's .npz format."""
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, model_type)
+    os.makedirs(d)
+    j = 21 if model_type == "hand" else 25
+    for i in range(n):
+        np.savez(os.path.join(d, f"s{i}.npz"),
+                 image=(rng.rand(size, size, 3) * 255).astype(np.uint8),
+                 keypoints=rng.rand(2, j, 2).astype(np.float32) * (size - 8)
+                 + 4, visible=rng.rand(2, j) > 0.2)
+    return d
+
+
+def pose_run(model_type, dtype, x, heat_t, paf_t, steps=6) -> dict:
+    """cli/pose_train._train_flat for ``steps`` steps on one fixed batch
+    of 8 (one step an epoch): ms/step (median of the steps after the
+    first), samples/s, peak memory, the loss falling."""
+    import argparse
+
+    from islx_torch.cli import pose_train as pose_cli
+    from islx_torch.core import weights as W
+    from islx_torch.models import pose_train as PT
+
+    args = argparse.Namespace(model_type=model_type, epochs=steps, batch=8,
+                              lr=1e-4, compute_dtype=dtype, seed=0,
+                              device="cuda")
+    losses, times = [], []
+    last = [time.perf_counter()]
+
+    def on_step(metrics):
+        losses.append(float(metrics["loss"]))     # waits for the step
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last[0] = time.perf_counter()
+    state = pose_cli._train_flat(W.init_params(model_type, 2), x, heat_t,
+                                 paf_t, args, lambda s: None, on_step)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"training: {model_type} {dtype} losses {losses} "
+                         f"do not fall")
+    if not all(torch.isfinite(v).all() for e in state.values()
+               for v in e.values()):
+        raise SystemExit(f"training: {model_type} {dtype} weights not "
+                         f"finite")
+    ms = 1e3 * statistics.median(times[1:])
+    state = PT.init_state(model_type, params=W.init_params(model_type, 2),
+                          device="cuda")
+    step = PT.make_train_step(state, model_type, {
+        "f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+    xs = [torch.from_numpy(a[:8]).cuda() for a in (x, heat_t, paf_t)]
+    step(*xs)
+    prof = device_ms_per_step(lambda: step(*xs))
+    return {"model": model_type, "dtype": dtype, "steps": steps,
+            "batch": 8, "size": x.shape[1], "losses": losses,
+            "first_step_ms": 1e3 * times[0], "ms_per_step": ms,
+            "samples_per_s": 8e3 / ms, "peak_mib": peak / 2 ** 20,
+            **prof, "device_busy_share": prof["device_ms"] / ms}
+
+
+def pose_card_vs_cpu(model_type, x, heat_t, paf_t) -> dict:
+    """The loss and its gradients of 2 samples' 64x64 corners (8x8 target
+    cells: the same cells the full map holds there) on the card and the
+    CPU, full width, f32 and bf16, from the same weights."""
+    from islx_torch.core import weights as W
+    from islx_torch.core.runtime import true_f32
+    from islx_torch.models import pose_train as PT
+
+    params = W.init_params(model_type, 2)
+    sl = (slice(0, 2), slice(0, 64), slice(0, 64))
+    tl = (slice(0, 2), slice(0, 8), slice(0, 8))
+    res = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            state = PT.init_state(model_type, params=params, device=dev)
+            step_in = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (x[sl], heat_t[tl], paf_t[tl])]
+            with true_f32():
+                loss, _ = PT.loss_fn(state.net, *step_in, model_type, dtype)
+                loss.backward()
+            out[dev] = (loss.item(), grads_of(state.net))
+        # bf16: the CPU's bf16 loss here is 1.6e-3 from its f64 loss
+        rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        if rel > (1e-4 if name == "f32" else 1e-2):
+            raise SystemExit(f"training: {model_type} {name} loss "
+                             f"{out['cuda'][0]} on the card, "
+                             f"{out['cpu'][0]} on the CPU")
+        res[name] = {"loss": out["cuda"][0], "cpu_loss": out["cpu"][0],
+                     "loss_rel_err": rel,
+                     **grads_close(out["cuda"][1], out["cpu"][1],
+                                   name == "f32")}
+    return res
+
+
+def training(records: str) -> dict:
+    """Phase 5d: the translator head on windows of phase 5c's records, and
+    BODY_25 and the hand CPM through the pose CLI's _train_flat, full
+    width, on the card. Training runs none of the port's kernels (no
+    Pallas function has a backward in islx): their counts must not move.
+    -> numbers by run."""
+    from islx_torch.cli import pose_train as pose_cli
+    from islx_torch.models import pose_train as PT
+
+    before = kernel_counts()
+    work = tempfile.mkdtemp(prefix="islx_train_")
+    res = {"card": card_line()}
+    try:
+        res["head"] = head_training(records, work)
+        res["pose"] = []
+        res["card_vs_cpu"] = {}
+        for mt in ("body25", "hand"):
+            x, heat_t, paf_t = pose_cli.load_samples(
+                pose_samples(work, mt), 184, mt)
+            for dtype in ("f32", "bf16"):
+                res["pose"].append(pose_run(mt, dtype, x, heat_t, paf_t))
+            res["card_vs_cpu"][mt] = pose_card_vs_cpu(mt, x, heat_t, paf_t)
+            if mt == "hand":
+                # deep supervision with the positive weight, bf16
+                state = PT.init_state("hand", params=None, seed=2,
+                                      device="cuda")
+                step = PT.make_train_step(state, "hand", torch.bfloat16,
+                                          pos_weight=2.0,
+                                          deep_supervision=True)
+                xs = [torch.from_numpy(a).cuda() for a in (x, heat_t, paf_t)]
+                losses = [float(step(*xs)["loss"]) for _ in range(4)]
+                if not all(np.isfinite(losses)) or \
+                        not losses[-1] < losses[0]:
+                    raise SystemExit(f"training: deep-supervised hand "
+                                     f"losses {losses} do not fall")
+                res["hand_deep_supervision"] = {"pos_weight": 2.0,
+                                                "dtype": "bf16",
+                                                "losses": losses}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    moved = {k: v for k, v in delta(before).items() if v}
+    if moved:
+        raise SystemExit(f"training: launched the port's kernels {moved}")
+    h = res["head"]
+    log(f"  head: {h['windows']} windows, {h['steps']} steps at batch 32: "
+        f"{h['ms_per_step']:.2f} ms/step, {h['samples_per_s']:.0f} "
+        f"samples/s, peak {h['peak_mib']:.0f} MiB, device "
+        f"{h['device_ms']:.2f} ms/step in {h['device_ops']:.0f} "
+        f"operations; resume bit-equal, "
+        f"reloads equal; card == CPU (grad {h['card_vs_cpu']['max_rel_err']:.2g})"
+        f"  [{res['card']}]")
+    for r in res["pose"]:
+        log(f"  {r['model']} {r['dtype']} {r['size']}x{r['size']} batch 8: "
+            f"{r['ms_per_step']:.1f} ms/step, {r['samples_per_s']:.1f} "
+            f"samples/s, peak {r['peak_mib']:.0f} MiB, device "
+            f"{r['device_ms']:.1f} ms/step in {r['device_ops']:.0f} "
+            f"operations, loss "
+            f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}  [{res['card']}]")
+    log(f"  card vs CPU: {json.dumps(res['card_vs_cpu'])}; deep-supervised "
+        f"hand losses {res['hand_deep_supervision']['losses']}")
     return res
 
 
@@ -2720,7 +3069,15 @@ def main(argv=None) -> int:
 
     log("[5c] dataset extraction from memory, full width, augmented: fused "
         "bf16 and int8, resume, two shards, exact")
-    extract = extraction(hand_cfg)
+    records = tempfile.mkdtemp(prefix="islx_records_")
+    try:
+        extract = extraction(hand_cfg, records)
+        log("[5d] training, full width: the head on windows of 5c's "
+            "records (fit, resume, reload), BODY_25 and the hand CPM "
+            "(184x184, batch 8, f32 and bf16)")
+        train = training(records)
+    finally:
+        shutil.rmtree(records, ignore_errors=True)
 
     log("[6] reference-parity path, full width, f32")
     parity, body, frame = parity_path()
@@ -2762,7 +3119,7 @@ def main(argv=None) -> int:
               quant_rows)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
-        "parity": parity,
+        "training": train, "parity": parity,
         "card": card, "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 

@@ -2,8 +2,8 @@
 (port of islx/cli/translate.py; reference demo_isl_translate.py).
 
     python -m islx_torch.cli.translate VIDEO [--head H.keras|.h5|.npz]
-        [--body-weights W] [--hand-weights W] [--batched --batch 16]
-        [--camera] [--min-prob P] [--device cuda]
+        [--body-weights W] [--hand-weights W] [--bundle DIR]
+        [--batched --batch 16] [--camera] [--min-prob P] [--device cuda]
 
 The default is the reference-exact per-frame path (``ISLTranslator``:
 ``Body`` + ``Hand`` on each frame, its features cached in the 20-frame
@@ -15,8 +15,11 @@ calibrated on the head of the clip and cached under ``<weights
 dir>/.int8_cache`` (:func:`islx_torch.cli.gated_int8_params`), as islx
 does; ``ISLX_INT8=0`` keeps bf16. Weights are islx ``.npz`` or reference
 ``.pt`` files; without them the nets run the port's seeded random init.
-Clips are decoded with cv2, as is ``--camera``; ``.keras``/``.h5`` heads
-are read with h5py.
+``--bundle`` loads a port bundle directory
+(:func:`islx_torch.core.checkpoint.save_bundle`, written by
+``islx_torch.cli.train --bundle``): its body, hand and head in place of
+the separate files. Clips are decoded with cv2, as is ``--camera``;
+``.keras``/``.h5`` heads are read with h5py.
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ def main(argv=None):
     p.add_argument("--head", default=None,
                    help="translator head checkpoint (.keras/.h5/.npz)")
     p.add_argument("--bundle", default=None,
-                   help="not ported: one-model and checkpoint bundles wait "
-                        "for ROADMAP.md §1 items 6-7")
+                   help="a port translator bundle directory (islx_torch."
+                        "cli.train --bundle); .keras one-models wait for "
+                        "ROADMAP.md §1 item 7")
     p.add_argument("--body-weights", default=None)
     p.add_argument("--hand-weights", default=None)
     p.add_argument("--min-prob", type=float, default=0.0)
@@ -61,9 +65,9 @@ def main(argv=None):
                         "ROADMAP.md §1 item 8")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.bundle:
-        p.error("--bundle is not ported yet (the one-model and checkpoint "
-                "modules, ROADMAP.md §1 items 6-7)")
+    if args.bundle and args.bundle.endswith((".keras", ".h5")):
+        p.error("--bundle with a .keras/.h5 one-model is not ported yet "
+                "(its export and import, ROADMAP.md §1 item 7)")
     if args.mesh_data:
         p.error("--mesh-data is not ported yet (multi-device, ROADMAP.md "
                 "§1 item 8)")
@@ -78,6 +82,13 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     head_params = load_head(args.head)
+    body_params = hand_params = None
+    model_type = "body25"
+    if args.bundle:
+        from islx_torch.core import checkpoint as ckpt
+
+        body_params, hand_params, head_params, model_type = \
+            ckpt.load_bundle(args.bundle)
 
     def show(idx, cid, expr, prob):
         if prob >= args.min_prob:
@@ -87,9 +98,11 @@ def main(argv=None):
         from islx_torch.cli import gated_hand_cfg, gated_int8_params
         from islx_torch.pipeline.translate import BatchedTranslatePipeline
 
-        bp = (W.load(args.body_weights, "body25") if args.body_weights
+        bp = (body_params if body_params is not None
+              else W.load(args.body_weights, "body25") if args.body_weights
               else None)
-        hp = (W.load(args.hand_weights, "hand") if args.hand_weights
+        hp = (hand_params if hand_params is not None
+              else W.load(args.hand_weights, "hand") if args.hand_weights
               else None)
         hand_cfg = gated_hand_cfg(args.hand_weights, log=print)
         if bp is not None and hp is not None:
@@ -111,8 +124,10 @@ def main(argv=None):
     from islx_torch.pose.hand import Hand
 
     translator = ISLTranslator(
-        Body(args.body_weights, "body25", device=device),
-        Hand(args.hand_weights, device=device), head_params)
+        Body(body_params if body_params is not None else args.body_weights,
+             model_type, device=device),
+        Hand(hand_params if hand_params is not None else args.hand_weights,
+             device=device), head_params)
     if args.camera:
         import cv2
 

@@ -8,7 +8,8 @@ int8 layer (:mod:`islx_torch.models.quant`) holds ``{"w_q" int8 OIHW,
 * :func:`from_islx_params` carries islx's params (``{name: {"w" HWIO, "b",
   "p"}}`` as numpy) across, so both packages run the very same weights.
 * :func:`load` reads islx ``.npz`` files (``islx.core.weights.save_npz``)
-  and reference ``.pt``/``.pth`` flat caffe dicts.
+  and reference ``.pt``/``.pth`` flat caffe dicts; :func:`save_npz` writes
+  the ``.npz``.
 * :func:`init_params` is the port's own seeded He-normal init. It does not
   reproduce JAX's threefry bits; comparisons carry islx's params across.
 """
@@ -111,6 +112,14 @@ def load_npz(path: str, model_type: str) -> State:
                 entry["p"] = data[f"{c.name}/p"]
             params[c.name] = entry
     return from_islx_params(params)
+
+
+def save_npz(path: str, state: State) -> None:
+    """A port state as islx's flat ``.npz`` ({name}/w HWIO, /b, /p), the
+    file :func:`load_npz` and islx's ``weights.load`` read."""
+    np.savez(path, **{f"{name}/{k}": v
+                      for name, entry in to_islx_params(state).items()
+                      for k, v in entry.items()})
 
 
 def load(path: str, model_type: str) -> State:

@@ -292,11 +292,11 @@ def _is_missing(v) -> bool:
     return v is None or (isinstance(v, float) and v != v)
 
 
-def _write_csv(path: str, rows: List[Dict]) -> None:
+def _write_csv(path: str, rows: List[Dict]) -> List[str]:
     """Rows -> CSV as ``pandas.DataFrame(rows).to_csv(index=False)``
     writes them: columns in first-seen order, a missing cell empty, a
     column of ints (with no missing cell) as ints, a column of numbers as
-    floats, and anything else as ``str``."""
+    floats, and anything else as ``str``. -> the column names."""
     names: Dict[str, None] = {}
     for r in rows:
         names.update(dict.fromkeys(r))
@@ -317,10 +317,11 @@ def _write_csv(path: str, rows: List[Dict]) -> None:
     with open(path, "w", newline="") as f:
         if not names:
             f.write("\n")
-            return
+            return []
         w = csv.writer(f, lineterminator="\n")
         w.writerow(list(names))
         w.writerows(zip(*cols.values()))
+    return list(names)
 
 
 def extract_dataset(cfg: ExtractConfig, pose, csv_path: str,

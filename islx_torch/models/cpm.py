@@ -19,6 +19,11 @@ between consecutive quantized convs: each epilogue writes int8 at the next
 conv's scale and the 2x2 pools between run on int8. Its dense blocks and
 BODY_25's ``Mconv6``/``Mconv7`` are not chained (each conv quantizes its
 float input).
+
+Training (:mod:`islx_torch.models.pose_train`) runs a float net that was
+never cast: :meth:`CPM.trainable` makes its f32 master weights, biases and
+PReLU slopes require gradients, and ``ConvLayer.forward`` rounds them to
+the compute dtype at use. Int8 layers are inference-only.
 """
 from __future__ import annotations
 
@@ -250,6 +255,28 @@ class CPM(nn.Module):
                 layer.prelu.data = entry["p"].to(torch.float32).clone()
         return self
 
+    def trainable(self) -> "CPM":
+        """Make the conv weights, biases and PReLU slopes (kept f32: a
+        trained net is never cast) require gradients."""
+        if self.quantized:
+            raise ValueError("int8 layers are inference-only: train the "
+                             "float net, then quantize it")
+        return self.requires_grad_(True)
+
+    def state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The float weights as a port weight state (f32 CPU tensors, what
+        :meth:`load_params` takes)."""
+        out = {}
+        for name, layer in self.layers.items():
+            if isinstance(layer, quant.QConvLayer):
+                raise ValueError(f"{name} is an int8 layer")
+            entry = {"w": layer.weight, "b": layer.bias}
+            if layer.prelu is not None:
+                entry["p"] = layer.prelu
+            out[name] = {k: v.detach().float().cpu().clone()
+                         for k, v in entry.items()}
+        return out
+
     def cast(self, dtype: torch.dtype) -> "CPM":
         """Store conv weights in the compute dtype once (channels_last),
         so a step converts no weights; biases and slopes stay f32. Int8
@@ -327,16 +354,18 @@ class CPM(nn.Module):
         tout = torch.cat([out0, heat0, paf], dim=1)
         return paf, self._b25_stage(tout, 1, "L1", cd)
 
-    def hand(self, x: torch.Tensor, cd, stages: int = 6) -> torch.Tensor:
-        """NCHW -> heat NCHW of stage ``stages`` (1..6)."""
+    def hand(self, x: torch.Tensor, cd, stages: int = 6) -> List[
+            torch.Tensor]:
+        """NCHW -> the heat NCHW of stages 1..``stages`` (the reference
+        consumes the last)."""
         if not 1 <= stages <= 6:
             raise ValueError(f"hand stages must be in [1, 6], got {stages}")
         trunk = self._seq(x, self.spec["trunk"], cd)
-        out = self._seq(trunk, self.spec["stage1"], cd)
+        outs = [self._seq(trunk, self.spec["stage1"], cd)]
         for i in range(2, stages + 1):
-            out = self._seq(torch.cat([out, trunk], dim=1),
-                            self.spec["stages"][f"stage{i}"], cd)
-        return out
+            outs.append(self._seq(torch.cat([outs[-1], trunk], dim=1),
+                                  self.spec["stages"][f"stage{i}"], cd))
+        return outs
 
     def forward(self, x_nhwc: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
@@ -347,4 +376,14 @@ class CPM(nn.Module):
             if self.model_type == "body25":
                 paf, heat = self.body25(x, compute_dtype)
                 return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
-            return self.hand(x, compute_dtype, stages).permute(0, 2, 3, 1)
+            return self.hand(x, compute_dtype, stages)[-1].permute(
+                0, 2, 3, 1)
+
+    def hand_forward_stages(self, x_nhwc: torch.Tensor,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> List[torch.Tensor]:
+        """All six hand stage heads, NHWC [B,h,w,22] each (training's deep
+        supervision, islx/models/cpm.py:472-488)."""
+        with true_f32():
+            return [o.permute(0, 2, 3, 1) for o in
+                    self.hand(x_nhwc.permute(0, 3, 1, 2), compute_dtype)]

@@ -1,22 +1,26 @@
 """ISL translation head: masked BiLSTM classifier over 167 expressions
-(port of ``islx/models/translator.py``, inference).
+(port of ``islx/models/translator.py``, inference and training).
 
-    Input[20,156] -> Masking(0.) -> BatchNorm -> BiLSTM(32, seq)
-    -> BiLSTM(32) -> ELU -> Dense32(no bias) -> BN -> ELU
-    -> Dense32(no bias) -> BN -> ELU -> Dense(167, softmax)
+    Input[20,156] -> Masking(0.) -> BatchNorm -> BiLSTM(32, seq) -> Dropout
+    -> BiLSTM(32) -> ELU -> Dense32(no bias) -> BN -> Dropout -> ELU
+    -> Dense32(no bias) -> BN -> ELU -> Dropout -> Dense(167, softmax)
 
 The LSTMs are hand loops over the T=20 steps with keras masking: a masked
 step passes h, c and the output through unchanged, which ``nn.LSTM`` cannot
 express. Parameters keep the keras layout (kernel [F,4U], recurrent
 [U,4U], bias [4U], gate order i, f, g, o) so islx's numpy params carry
-across as they are.
+across as they are. The BatchNorms' running ``mean``/``var`` are buffers,
+updated by the training loop's EMA (:mod:`islx_torch.isl.train`), never by
+gradients; in train mode a BN normalizes by its batch's mean and
+population variance, and dropout draws from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
 import io
 import json
 import zipfile
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -213,51 +217,127 @@ def _lstm(p: Mapping[str, torch.Tensor], xs: torch.Tensor,
     return torch.stack(outs, dim=1), out
 
 
-def _bn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+BN_KEYS = ("mean", "var")   # running statistics: buffers, not parameters
+
+
+def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and population variance (islx's ``x.var``) over every axis
+    but the last; masked zero timesteps count, as in islx."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(axes)
+    return mean, (x - mean).square().mean(axes)
+
+
+def _bn(p: Mapping[str, torch.Tensor], x: torch.Tensor, train: bool = False,
         eps: float = 1e-3) -> torch.Tensor:
-    """keras BatchNormalization, inference (running statistics)."""
-    return (x - p["mean"]) * torch.rsqrt(p["var"] + eps) * p["gamma"] \
-        + p["beta"]
+    """keras BatchNormalization: running statistics, or in train mode the
+    batch's moments."""
+    mean, var = _moments(x) if train else (p["mean"], p["var"])
+    return (x - mean) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator], train: bool
+             ) -> torch.Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` and scale by
+    ``1 / (1 - rate)``; the identity outside train mode, at rate 0 or
+    without a generator (islx's ``rng=None``)."""
+    if not train or generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class TranslatorHead(nn.Module):
     """The BiLSTM head; ``forward(x [B,T,156]) -> probabilities [B,167]``.
 
     A timestep is masked where every feature is 0 (keras
-    ``Masking(mask_value=0.)``, the zero-padded window tail)."""
+    ``Masking(mask_value=0.)``, the zero-padded window tail). Every weight
+    is a parameter (``{layer}__{name}``) but the BNs' ``mean``/``var``,
+    which are buffers."""
 
-    def __init__(self, params: Params):
+    def __init__(self, params: Mapping[str, Mapping[str, np.ndarray]],
+                 cfg: TranslatorConfig = TranslatorConfig()):
         super().__init__()
+        self.cfg = cfg
+        self._keys = {name: list(entry) for name, entry in params.items()}
         for name, entry in params.items():
             for k, v in entry.items():
-                self.register_buffer(
-                    f"{name}__{k}",
-                    torch.from_numpy(np.array(v, np.float32)))
+                t = torch.from_numpy(np.array(v, np.float32))
+                if name.startswith("bn") and k in BN_KEYS:
+                    self.register_buffer(f"{name}__{k}", t)
+                else:
+                    self.register_parameter(f"{name}__{k}", nn.Parameter(t))
 
     def _p(self, name: str) -> Dict[str, torch.Tensor]:
-        pre = f"{name}__"
-        return {k[len(pre):]: v for k, v in self.named_buffers()
-                if k.startswith(pre)}
+        return {k: getattr(self, f"{name}__{k}") for k in self._keys[name]}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mask = (x != 0.0).any(dim=-1)
-        h = _bn(self._p("bn0"), x)
+    def _lstms(self, h: torch.Tensor, mask: torch.Tensor, generator,
+               train: bool) -> torch.Tensor:
+        """Both BiLSTMs (and the dropout between): -> [B, 2U]."""
         f, _ = _lstm(self._p("lstm1_fwd"), h, mask, reverse=False)
         b, _ = _lstm(self._p("lstm1_bwd"), h, mask, reverse=True)
-        h = torch.cat([f, b], dim=-1)
+        h = _dropout(torch.cat([f, b], dim=-1), self.cfg.dropout, generator,
+                     train)
         _, f = _lstm(self._p("lstm2_fwd"), h, mask, reverse=False)
         _, b = _lstm(self._p("lstm2_bwd"), h, mask, reverse=True)
-        h = F.elu(torch.cat([f, b], dim=-1))
-        h = F.elu(_bn(self._p("bn1"), h @ self._p("dense1")["kernel"]))
-        h = F.elu(_bn(self._p("bn2"), h @ self._p("dense2")["kernel"]))
+        return torch.cat([f, b], dim=-1)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Probabilities [B,167]. ``train``: batch statistics in every BN
+        and, with a ``generator``, dropout at ``cfg.dropout``."""
+        x = x.float()
+        mask = (x != 0.0).any(dim=-1)
+        rate = self.cfg.dropout
+        h = _bn(self._p("bn0"), x, train)
+        h = F.elu(self._lstms(h, mask, generator, train))
+        h = _bn(self._p("bn1"), h @ self._p("dense1")["kernel"], train)
+        h = F.elu(_dropout(h, rate, generator, train))
+        h = _bn(self._p("bn2"), h @ self._p("dense2")["kernel"], train)
+        h = _dropout(F.elu(h), rate, generator, train)
         d3 = self._p("dense3")
         return torch.softmax(h @ d3["kernel"] + d3["bias"], dim=-1)
+
+    def batch_stats(self, x: torch.Tensor
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Batch mean and population variance at every BN's input under
+        the train-mode forward without dropout (islx's ``batch_stats``):
+        what the training loop's EMA moves the running statistics to."""
+        x = x.float()
+        mask = (x != 0.0).any(dim=-1)
+        out = {"bn0": _moments(x)}
+        h = _bn(self._p("bn0"), x, train=True)
+        h = F.elu(self._lstms(h, mask, None, False))
+        h = h @ self._p("dense1")["kernel"]
+        out["bn1"] = _moments(h)
+        h = F.elu(_bn(self._p("bn1"), h, train=True))
+        out["bn2"] = _moments(h @ self._p("dense2")["kernel"])
+        return out
+
+    def to_params(self) -> Params:
+        """The head's weights and statistics as islx-layout numpy params
+        (what :func:`save_npz` writes)."""
+        return {name: {k: v.detach().cpu().numpy().copy()
+                       for k, v in self._p(name).items()}
+                for name in self._keys}
+
+
+def from_islx_params(params: Mapping[str, Mapping[str, np.ndarray]],
+                     device="cpu",
+                     cfg: TranslatorConfig = TranslatorConfig()
+                     ) -> TranslatorHead:
+    """islx's head params (numpy, islx's layout) -> a trainable head on
+    ``device``: weights as parameters, the BN statistics as buffers."""
+    return TranslatorHead(params, cfg).to(device)
 
 
 def build_head(params: Optional[Params], device,
                cfg: TranslatorConfig = TranslatorConfig()) -> TranslatorHead:
-    """The head on ``device`` built of numpy params in islx's layout
-    (seeded init when None)."""
-    return TranslatorHead(params if params is not None
-                          else init_params(cfg)).to(device).eval()
+    """The head on ``device`` for inference, built of numpy params in
+    islx's layout (seeded init when None)."""
+    head = TranslatorHead(params if params is not None
+                          else init_params(cfg), cfg)
+    return head.to(device).eval().requires_grad_(False)

@@ -165,7 +165,10 @@ def test_port_modules_import_no_jax_or_islx():
                     ".__init__"))
     assert {"islx_torch.isl.extract", "islx_torch.ops.augment",
             "islx_torch.utils.draw", "islx_torch.cli.extract",
-            "islx_torch.cli.translate"} <= set(names)
+            "islx_torch.cli.translate", "islx_torch.isl.dataset",
+            "islx_torch.isl.train", "islx_torch.core.checkpoint",
+            "islx_torch.models.pose_train", "islx_torch.cli.train",
+            "islx_torch.cli.pose_train"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {sorted(names)!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -203,6 +206,23 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     video.write_bytes(b"")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main([str(video)])
+    # training: the CLIs, the head's fit and the CPMs' state
+    from islx_torch.cli import pose_train as pose_cli
+    from islx_torch.cli import train as train_cli
+    from islx_torch.isl import train as TR
+    from islx_torch.models import pose_train as PT
+
+    (tmp_path / "labels.csv").write_text("video_id,expression\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main([str(tmp_path), "--labels",
+                        str(tmp_path / "labels.csv"), "--out",
+                        str(tmp_path / "h.npz")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pose_cli.main([str(tmp_path), "--out", str(tmp_path / "w.npz")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TR.fit(np.zeros((2, 20, 156), np.float32), np.zeros(2, np.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PT.init_state("hand")
     # int8 calibration runs the float nets on the GPU unless asked not to
     from islx_torch import cli as gate
     from islx_torch.core.config import HandConfig

@@ -271,7 +271,8 @@ def test_cli_batched_lines_equal(env, monkeypatch):
 
 
 def test_cli_rejects_unported_flags(env, capsys):
-    for flag, item in (("--bundle", "items 6-7"), ("--mesh-data", "item 8")):
+    for flag, value, item in (("--bundle", "one.keras", "item 7"),
+                              ("--mesh-data", "2", "item 8")):
         with pytest.raises(SystemExit):
-            TCLI.main([env["clip"], flag, "2", "--device", "cpu"])
+            TCLI.main([env["clip"], flag, value, "--device", "cpu"])
         assert item in capsys.readouterr().err
