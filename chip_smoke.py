@@ -89,6 +89,24 @@ Phases (any failure exits non-zero and the last line is never printed):
    the launch counters must show the NMS+first-K, PAF-sampling and
    labelling kernels on it; the same path on a small frame must match the
    plain CPU path;
+6b. the single-image path and the split pipelines at full width (BODY_25,
+   COCO and the hand CPM, seeded weights with the arm joints' heat
+   raised, thre2 -0.5 and thre1 lowered until people and hands form), the
+   launch counters set to 0 at its start: ImagePose fused and split, bf16,
+   on 8 frames of the 184x328 bucket (each result == a direct fused step,
+   or a body step -> detect_hand_boxes -> from_frames; every NMS mask
+   launch bit-equal; the split crops == the CPU's words; ms per call);
+   ImagePose with int8 CPMs (one call's conv_q and quantize calls held
+   word for word; ms per call); BatchedBodyPipeline alone at B=192 in the
+   184x144 bucket (integer planes == phase 4's fused step's body half;
+   frames/s); the exact-parity construction over 4 frames (nms_first_k
+   and paf_sample launches bit-equal; each frame == the parity Body's;
+   ms per frame); the body pyramid (0.5, 1.0) over 4 frames; the hand
+   pyramid (0.5-2.0) over 8 seeded 368 px crops, cc (cc_label launches
+   bit-equal, each crop == the parity Hand's) and fast, and the labelling
+   of the 8x21 planes in one call against 8 calls; a COCO ImagePose call;
+   small f32 runs (split, exact, pyramid; BODY_25 and COCO) card == CPU;
+   every kernel must have launched;
 7. device ms per launch (torch.profiler), after the timed phases, so
    that no profiler runs before them: the labelling kernel's launches, and
    the PAF kernel at phase 3's shape (inputs warm in L2, and L2 flushed
@@ -103,11 +121,15 @@ configs and the int8 step of phase 4c with torch.profiler: device ms per
 pipeline stage, the kernels that take the most device time, the port's
 own kernels' device time (the int8 convs are conv_q_kernel's: the stage
 ranges do not count them), the device's busy share of the steps' wall
-time and the CPM convolutions' achieved rate, as one JSON line.
+time and the CPM convolutions' achieved rate; then one parity Body call
+(720x1280) and one Hand call (256 px, four scales), and one ImagePose
+call of each mode (phase 6b's), by their stage ranges; as one JSON
+line.
 
     python3 chip_smoke.py --kernels
 
-runs phases 1-3 and 7 only and prints their numbers as one JSON line.
+runs phases 1-3 and 7 only and prints their numbers as one JSON line;
+``--single`` runs phases 1-2 and 6b only.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -1977,13 +1999,14 @@ def profile_served(pipe, frames, reps=5) -> dict:
     return res
 
 
-def calibrate_people(pipe, frames, thre1) -> float:
+def calibrate_people(pipe, frames, thre1, what="serving",
+                     tries=16) -> float:
     """Set thre2 to -0.5 (the CPU serve tests' value) and lower thre1 from
     phase 4's calibrated value by x0.75 until a direct step of ``frames``
     forms a person a frame on average and at least one hand box (random
     weights form none at phase 4's thre1) -> that thre1, set in the
     pipeline's config."""
-    for _ in range(16):
+    for _ in range(tries):
         pipe.body.cfg = dataclasses.replace(pipe.body.cfg, thre1=thre1,
                                             thre2=-0.5)
         results, boxes, _ = pipe.assemble(
@@ -1992,7 +2015,7 @@ def calibrate_people(pipe, frames, thre1) -> float:
                 and (boxes[:, 3] > 0).any()):
             return thre1
         thre1 *= 0.75
-    raise SystemExit(f"serving: no thre1 down to {thre1} forms people")
+    raise SystemExit(f"{what}: no thre1 down to {thre1} forms people")
 
 
 def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
@@ -2205,12 +2228,12 @@ def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
 
 
 @contextlib.contextmanager
-def watched_parity():
+def watched_parity(what="extraction"):
     """Inside the block every nms_first_k, paf_sample and label_components
     call of the parity path (from ops.peaks, ops.paf and ops.hand_peaks) is
     held bit for bit against its plain version on the same inputs, and
-    must launch its kernel once; a mismatch raises RuntimeError. Yields
-    the calls checked, by kernel."""
+    must launch its kernel once; a mismatch raises RuntimeError naming
+    ``what``. Yields the calls checked, by kernel."""
     from islx_torch.ops import cc_label as CC
     from islx_torch.ops import hand_peaks as HP
     from islx_torch.ops import nms_first_k as NF
@@ -2235,13 +2258,13 @@ def watched_parity():
             before = kern.launches
             got = kern(*a, **k)
             if kern.launches != before + 1:
-                raise RuntimeError(f"extraction: {name} launched "
+                raise RuntimeError(f"{what}: {name} launched "
                                    f"{kern.launches - before} times")
             want = plain(*a, **k)
             pair = (got, want) if isinstance(got, tuple) else \
                 ((got,), (want,))
             if not words(*pair):
-                raise RuntimeError(f"extraction: {name} differs from its "
+                raise RuntimeError(f"{what}: {name} differs from its "
                                    f"plain version at "
                                    f"{tuple(a[0].shape)}")
             seen[name] += 1
@@ -2919,6 +2942,605 @@ def training(records: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: the single-image path (ImagePose) and the split batched
+# pipelines, at full width.
+# ---------------------------------------------------------------------------
+
+SI_BUCKET = (184, 328)          # the bucket of a 720x1280 frame
+ALL_KERNELS = tuple(name for name, _ in KERNELS)
+
+
+def si_weights():
+    """Seeded full-width BODY_25, COCO and hand states, the arm joints'
+    final heat bias raised by 1 (parity_weights' rule) so arms chain and
+    hand boxes form."""
+    from islx_torch.core import weights as W
+
+    bp, hp = parity_weights()
+    cp = W.init_params("coco", 2)
+    cb = cp["Mconv7_stage6_L2"]["b"].clone()
+    cb[2:8] += 1.0
+    cp["Mconv7_stage6_L2"]["b"] = cb
+    return bp, cp, hp
+
+
+def heat_quantile(pipe, frames, njoint, q) -> float:
+    """The q quantile of the joint heatmaps a body pipeline's net gives
+    ``frames`` [n,H,W,3] u8."""
+    x = torch.from_numpy(np.ascontiguousarray(frames)).to(pipe.device)
+    with torch.inference_mode():
+        heat = pipe.net(x.float() / 256.0 - 0.5, pipe.compute_dtype)[1]
+    return float(torch.quantile(heat[..., :njoint - 1].float().reshape(-1),
+                                q))
+
+
+def same_pose(got, want) -> bool:
+    """(candidate, subset, hands) equal word for word."""
+    (c, s, h), (jc, js, jh) = got, want
+    return (np.array_equal(c, jc) and np.array_equal(s, js)
+            and len(h) == len(jh)
+            and all(np.array_equal(a, b) for a, b in zip(h, jh)))
+
+
+def close_pose(got, want, tol=1e-4) -> bool:
+    """(candidate, subset[, hands]) with equal integers and scores within
+    ``tol`` (card against CPU: the f32 CPMs sum in another order)."""
+    c, s, jc, js = got[0], got[1], want[0], want[1]
+    if not (c.shape == jc.shape and s.shape == js.shape
+            and np.array_equal(c[:, [0, 1, 3]], jc[:, [0, 1, 3]])
+            and np.array_equal(s[:, :-2], js[:, :-2])
+            and np.array_equal(s[:, -1], js[:, -1])
+            and np.abs(c[:, 2] - jc[:, 2]).max(initial=0.0) <= tol
+            and np.abs(s[:, -2] - js[:, -2]).max(initial=0.0) <= tol):
+        return False
+    if len(got) > 2:
+        return (len(got[2]) == len(want[2])
+                and all(np.array_equal(a, b) for a, b in zip(got[2],
+                                                             want[2])))
+    return True
+
+
+def describe_apart(a, b) -> str:
+    """Where two tables first differ (for a failure's message)."""
+    if a.shape != b.shape:
+        n = min(len(a), len(b))
+        a, b = a[:n], b[:n]
+    bad = np.nonzero(~np.isclose(a, b, rtol=0, atol=1e-4).all(-1))[0]
+    if not len(bad):
+        return "none in the common rows"
+    i = int(bad[0])
+    return f"row {i}: {a[i].tolist()} vs {b[i].tolist()}"
+
+
+def body_of(pose):
+    """An ImagePose's body pipeline (its fused pipeline's, fused)."""
+    return pose.pipe.body if pose.fused else pose.body
+
+
+def direct_pose(pose, frame):
+    """The result ImagePose must give for a bucket-sized ``frame``: a
+    direct FusedPosePipeline step, or a BatchedBodyPipeline step ->
+    detect_hand_boxes -> BatchedHandPipeline.from_frames."""
+    from islx_torch.pipeline.batch_pose import detect_hand_boxes
+
+    hb, wb = frame.shape[:2]
+    if pose.fused:
+        pipe = pose.pipe
+        results, boxes, peaks = pipe.assemble(
+            pipe.device_step(frame[None], (hb, wb)), 1)
+        return results[0] + (pipe.hands_for_frame(boxes, peaks, 0),), boxes
+    flat = pose.body.upload_frames(frame[None])
+    results = pose.body.assemble(
+        pose.body.device_step_flat(flat, 1, hb, wb), 1)
+    boxes = detect_hand_boxes(results, hb, wb, (hb, wb), pose.max_hands)
+    hands = []
+    if (boxes[:, 3] > 0).any():
+        peaks = pose.hand.from_frames(flat, 1, hb, wb, boxes)
+        hands = [peaks[j].astype(np.int64) for j in range(len(boxes))
+                 if boxes[j, 3] > 0]
+    return results[0] + (hands,), boxes
+
+
+def image_leg(pose, frames, name) -> dict:
+    """ImagePose over ``frames``: every NMS mask launch held bit for bit
+    against its plain version, each result equal to a direct step's
+    (direct_pose), then ms per call (the median over the frames, each
+    call ending on the host)."""
+    with watched_nms() as nms:
+        outs = [pose(f) for f in frames]
+    all_boxes = []
+    with uncounted():
+        for i, f in enumerate(frames):
+            want, boxes = direct_pose(pose, f)
+            if not same_pose(outs[i], want):
+                raise SystemExit(f"single image ({name}): frame {i} differs "
+                                 f"from a direct step's result")
+            all_boxes.append(np.c_[np.full(len(boxes), i), boxes[:, 1:]]
+                             if len(boxes) else boxes)
+    both = [i for i, (_, s, h) in enumerate(outs) if len(s) and len(h)]
+    if not both:
+        raise SystemExit(f"single image ({name}): no frame has a person "
+                         f"and a hand")
+    times = []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose(f)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"frames": len(frames), "nms_checked": nms["calls"],
+           "people": sum(len(s) for _, s, _ in outs),
+           "hands": sum(len(h) for _, _, h in outs),
+           "frames_with_person_and_hand": both,
+           "ms_per_call": statistics.median(times),
+           "ms_per_call_range": [min(times), max(times)]}
+    log(f"  ImagePose {name}: {res['people']} people, {res['hands']} hands "
+        f"over {len(frames)} frames (== direct steps; {nms['calls']} NMS "
+        f"mask launches bit-equal); {res['ms_per_call']:.2f} ms/call "
+        f"(median; {min(times):.2f}-{max(times):.2f})")
+    return res, np.concatenate(all_boxes)
+
+
+def split_crops_match_cpu(frames, boxes, size) -> int:
+    """The split path's crops (the host's boxes over the frames) cut on
+    the card, word-equal to the CPU function's -> crops compared."""
+    from islx_torch.ops.resize import dynamic_crop_resize_batch
+
+    use = boxes[boxes[:, 3] > 0].astype(np.int32)
+    if not len(use):
+        raise SystemExit("single image (split): no hand box to crop")
+    args = [torch.from_numpy(np.ascontiguousarray(use[:, i]))
+            for i in range(4)]
+    f = torch.from_numpy(np.ascontiguousarray(frames))
+    got = dynamic_crop_resize_batch(f.cuda(), *(a.cuda() for a in args),
+                                    size).cpu()
+    want = dynamic_crop_resize_batch(f, *args, size)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise SystemExit(f"single image (split): {int((got != want).sum())} "
+                         f"crop words differ from the CPU's")
+    return len(use)
+
+
+def capture_net(net, store):
+    """``net`` wrapped to keep each call's outputs by input (H, W)."""
+    def call(x, cd, *a):
+        out = net(x, cd, *a)
+        store[tuple(x.shape[1:3])] = out
+        return out
+    return call
+
+
+def exact_leg(bp, frames, thre1) -> dict:
+    """The exact-parity construction (paf_mode="exact",
+    two_stage_peaks=False, boxsize 2*hb: the net sees the frame) in f32 on
+    the frames: nms_first_k over the batch and paf_sample a frame, each
+    launch bit-equal to its plain version; each frame's (candidate,
+    subset) equal to the parity Body's on the net outputs of that frame
+    (integers equal, scores within 1e-4: the batch upsamples its maps in
+    one matmul, Body a frame at a time); ms per frame beside a parity Body
+    call's (its own net)."""
+    from islx_torch.core.config import PoseConfig
+    from islx_torch.pipeline.batch_pose import BatchedBodyPipeline
+    from islx_torch.pose.body import Body
+
+    n, hb, wb = frames.shape[:3]
+    cfg = PoseConfig(scale_search=(0.5,), boxsize=2 * hb, max_peaks=16,
+                     thre1=thre1, thre2=-0.5)
+    # top_m = K*K: the compaction keeps every pair, as the parity Body's
+    # grouping reads them all (islx's default 48 drops pairs past the 48th
+    # best, which the greedy grouping can reach at thre2 -0.5)
+    pipe = BatchedBodyPipeline(bp, cfg=cfg, compute_dtype=torch.float32,
+                               top_m=cfg.max_peaks ** 2, paf_mode="exact",
+                               two_stage_peaks=False)
+    if pipe.pack_mode != "bits" or pipe.fused_peaks:
+        raise SystemExit("exact construction: not islx's bits/unfused one")
+    outs = {}
+    net = pipe.net
+    pipe.net = capture_net(net, outs)
+    with watched_parity("exact construction") as par:
+        packed = pipe.device_step(frames)
+    pipe.net = net
+    results = pipe.assemble(packed, n)
+    paf8, heat8 = outs[(hb, wb)]
+    with uncounted():
+        for i in range(n):
+            body = Body(bp, config=cfg, compute_dtype=torch.float32,
+                        forward_fn=lambda w, x, cd, i=i: (paf8[i:i + 1],
+                                                          heat8[i:i + 1]))
+            want = body(frames[i])
+            if not close_pose(results[i], want):
+                (c, s), (jc, js) = results[i], want
+                raise SystemExit(
+                    f"exact construction: frame {i} differs from the parity "
+                    f"Body's: candidates {c.shape} {jc.shape}, people "
+                    f"{s.shape} {js.shape}, first rows apart "
+                    f"{describe_apart(c, jc)} / {describe_apart(s, js)}")
+    if par["nms_first_k"] != 1 or par["paf_sample"] != n:
+        raise SystemExit(f"exact construction: kernel calls {par}")
+    ms = host_ms(lambda: pipe.assemble(pipe.device_step(frames), n))
+    body = Body(bp, config=cfg, compute_dtype=torch.float32)
+    body_ms = host_ms(lambda: body(frames[0]))
+    res = {"frames": n, "bucket": [hb, wb], "checked": dict(par),
+           "people": sum(len(s) for _, s in results),
+           "candidates": sum(len(c) for c, _ in results),
+           "ms_per_frame": ms / n, "parity_body_ms": body_ms}
+    log(f"  exact construction: {res['candidates']} candidates, "
+        f"{res['people']} people over {n} frames == the parity Body's; "
+        f"launches checked {dict(par)}; {ms / n:.2f} ms/frame against "
+        f"{body_ms:.2f} ms for a parity Body call")
+    return res
+
+
+def multi_body_leg(bp, frames, thre1) -> dict:
+    """The body scale pyramid (0.5, 1.0) over the frames, bf16, each NMS
+    mask launch held bit-equal."""
+    from islx_torch.core.config import PoseConfig
+    from islx_torch.pipeline.batch_pose import BatchedBodyPipeline
+
+    n = len(frames)
+    pipe = BatchedBodyPipeline(bp, cfg=PoseConfig(
+        scale_search=(0.5, 1.0), max_peaks=16, thre1=thre1, thre2=-0.5))
+    with watched_nms() as nms:
+        results = pipe.assemble(pipe.device_step(frames), n)
+    if nms["calls"] != 1:
+        raise SystemExit(f"multi-scale body: {nms['calls']} NMS calls")
+    if not all(np.isfinite(c).all() for c, _ in results):
+        raise SystemExit("multi-scale body: candidates not finite")
+    ms = host_ms(lambda: pipe.assemble(pipe.device_step(frames), n))
+    res = {"frames": n, "scales": [0.5, 1.0], "nms_checked": nms["calls"],
+           "candidates": sum(len(c) for c, _ in results),
+           "people": sum(len(s) for _, s in results), "ms_per_batch": ms}
+    log(f"  multi-scale body (0.5, 1.0), B={n}: {res['candidates']} "
+        f"candidates, {res['people']} people, NMS mask bit-equal; "
+        f"{ms:.1f} ms/batch")
+    return res
+
+
+def multi_hand_leg(hp, crops) -> dict:
+    """The multi-scale BatchedHandPipeline (scales 0.5-2.0) over ``crops``
+    [N,368,368,3], bf16: peak mode cc (cc_label over the N crops' planes,
+    each launch bit-equal; every crop's peaks equal to the parity Hand's
+    on the same net outputs) and fast; ms per batch; the labelling of the
+    N*21 planes in one call against N calls of 21."""
+    from islx_torch.core.config import HandConfig
+    from islx_torch.ops.blur import gaussian_blur
+    from islx_torch.ops.cc_label import label_components
+    from islx_torch.ops.resize import resize_cubic
+    from islx_torch.pipeline.batch_pose import BatchedHandPipeline
+    from islx_torch.pose.hand import Hand
+
+    n, s0 = crops.shape[0], crops.shape[1]
+    cfg = HandConfig()
+    pipe = BatchedHandPipeline(hp, cfg, crop_size=s0, peak_mode="cc")
+    outs = {}
+    net = pipe.net
+    pipe.net = capture_net(net, outs)
+    with watched_parity("multi-scale hand") as par:
+        peaks = pipe(crops)
+    pipe.net = net
+    if par["label_components"] < 1:
+        raise SystemExit("multi-scale hand: cc_label did not run")
+    with uncounted():
+        for i in range(n):
+            hand = Hand(hp, config=cfg, forward_fn=lambda w, x, cd, i=i:
+                        outs[tuple(x.shape[1:3])][i:i + 1])
+            want = hand(crops[i])
+            if not np.array_equal(peaks[i], want):
+                raise SystemExit(f"multi-scale hand: crop {i}'s peaks "
+                                 f"differ from the parity Hand's")
+    found = int((peaks != 0).any(-1).sum())
+    res = {"crops": n, "size": s0, "scales": list(cfg.scale_search),
+           "cc_checked": par["label_components"], "parts_found": found,
+           "cc_ms_per_batch": host_ms(lambda: pipe(crops))}
+    pipe.peak_mode = "fast"
+    fast = pipe(crops)
+    res["fast_ms_per_batch"] = host_ms(lambda: pipe(crops))
+    res["fast_parts_equal_cc"] = int((fast == peaks).all(-1).sum())
+    # the labelling alone: the N crops' planes in one call, or a call a crop
+    with uncounted(), torch.inference_mode():
+        x = torch.from_numpy(crops).cuda()
+        heat = None
+        for s in cfg.scale_search:
+            m = resize_cubic(pipe.run_scale(x, s), s0, s0)
+            heat = m if heat is None else heat + m
+        binary = gaussian_blur(heat[..., :21] / len(cfg.scale_search),
+                               3.0) > cfg.thre
+        stacked = binary.permute(1, 2, 0, 3).reshape(s0, s0, -1).contiguous()
+        per = [binary[i].contiguous() for i in range(n)]
+        res["cc_stacked_ms"] = cuda_ms(lambda: label_components(stacked),
+                                       reps=10, warmup=2)
+        res["cc_per_crop_ms"] = cuda_ms(
+            lambda: [label_components(b) for b in per], reps=10, warmup=2)
+    log(f"  multi-scale hand, {n} crops of {s0} px, scales 0.5-2.0: cc "
+        f"{res['cc_ms_per_batch']:.1f} ms/batch ({found} parts found, == "
+        f"the parity Hand's crop by crop, {par['label_components']} "
+        f"labelling calls bit-equal), fast {res['fast_ms_per_batch']:.1f} "
+        f"ms/batch; labelling {n}x21 planes in one call "
+        f"{res['cc_stacked_ms']:.3f} ms, {n} calls of 21 "
+        f"{res['cc_per_crop_ms']:.3f} ms")
+    return res
+
+
+def body_standalone_leg(hand_cfg, b=192, orig_hw=(512, 384)) -> dict:
+    """BatchedBodyPipeline alone, islx's default construction, at B=192 in
+    the 184x144 bucket on phase 4's frames and weights (the I420 batch
+    decoded on the card, so both read the same BGR frames): its integer
+    planes word-equal to the body half of phase 4's fused step; frames/s."""
+    from islx_torch.core import weights as W
+    from islx_torch.core.config import PoseConfig
+    from islx_torch.ops.yuv import yuv420_to_bgr
+    from islx_torch.pipeline.batch_pose import (BatchedBodyPipeline,
+                                                FusedPosePipeline, bucket_for)
+
+    hb, wb = bucket_for(*orig_hw)
+    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
+    with uncounted():
+        ref = FusedPosePipeline(W.init_params("body25", 0),
+                                W.init_params("hand", 1), hand_cfg=hand_cfg)
+        yuv = ref.upload_frames(host)
+        thre1 = calibrate_thre1(ref, yuv, b, hb, wb, orig_hw)
+        bgr = yuv420_to_bgr(yuv, b, hb, wb).to(torch.uint8).reshape(-1)
+        want = ref.device_step_flat(bgr, b, hb, wb, orig_hw, thre1).cpu()
+        want = ref.body.unpack(ref.unpack(want.numpy(), b)[0], b)
+        del ref
+    pipe = BatchedBodyPipeline(W.init_params("body25", 0),
+                               cfg=PoseConfig(max_peaks=16))
+    got = pipe.unpack(pipe.device_step_flat(bgr, b, hb, wb, thre1), b)
+    for name, i in (("xy", 0), ("count", 2), ("pair", 3), ("ok", 5)):
+        if not np.array_equal(got[i], want[i]):
+            raise SystemExit(f"standalone body: {name} differs from the "
+                             f"fused step's body half")
+    ms = cuda_ms(lambda: pipe.device_step_flat(bgr, b, hb, wb, thre1).cpu(),
+                 reps=3, warmup=1)
+    res = {"batch": b, "bucket": [hb, wb], "thre1": thre1,
+           "peaks": int(got[2].sum()), "ms_per_step": ms,
+           "frames_per_s": b / (ms * 1e-3)}
+    log(f"  standalone body B={b} {hb}x{wb}: planes == the fused step's body "
+        f"half ({res['peaks']} peaks); {ms:.1f} ms/step, "
+        f"{res['frames_per_s']:.1f} frames/s")
+    return res
+
+
+def small_cpu_checks(bp, cp, hp) -> dict:
+    """The split ImagePose, the exact construction and the body pyramid,
+    BODY_25 and COCO, f32, on small frames: the card == the plain CPU path
+    (integers equal; scores within 1e-4 in the exact construction's bits
+    buffer, within 1e-2 where bits16 rounds them to f16, as phase 4's
+    small check)."""
+    from islx_torch.core.config import HandConfig, PoseConfig
+    from islx_torch.pipeline.batch_pose import BatchedBodyPipeline
+    from islx_torch.pipeline.image import ImagePose
+
+    rng = np.random.RandomState(17)
+    frame = seeded_frame(rng, 184, 96)
+    small = np.stack([seeded_frame(rng, 48, 64) for _ in range(2)])
+    hcfg = HandConfig(scale_search=(0.25,))
+    out = {}
+    for mt, p in (("body25", bp), ("coco", cp)):
+        nj = PoseConfig(model_type=mt).njoint
+        res = {}
+        for leg in ("split", "exact", "multi"):
+            got = {}
+            for dev in ("cpu", "cuda"):
+                if leg == "split":
+                    pose = ImagePose(p, hp, mt, compute_dtype=torch.float32,
+                                     hand_cfg=hcfg, device=dev)
+                    body = pose.body
+                    if dev == "cpu":
+                        t1 = heat_quantile(body, frame[None], nj, 0.6)
+                    body.cfg = dataclasses.replace(body.cfg, max_peaks=8,
+                                                   thre1=t1, thre2=-0.5)
+                    got[dev] = [pose(frame)]
+                    continue
+                cfg = (dict(scale_search=(0.5,), boxsize=96,
+                            paf_mode="exact") if leg == "exact"
+                       else dict(scale_search=(0.5, 1.0), boxsize=96,
+                                 paf_mode="cell8"))
+                mode = cfg.pop("paf_mode")
+                pipe = BatchedBodyPipeline(
+                    p, mt, PoseConfig(model_type=mt, max_peaks=8, thre2=-0.5,
+                                      **cfg),
+                    compute_dtype=torch.float32, paf_mode=mode,
+                    two_stage_peaks=leg != "exact", device=dev)
+                if dev == "cpu":
+                    t2 = heat_quantile(pipe, small, nj, 0.8)
+                got[dev] = pipe.assemble(pipe.device_step(small, t2), 2)
+            # scores: within f16 roundings where the buffer packs f16 (the
+            # split and pyramid legs' bits16), within 1e-4 in exact's bits
+            tol = 1e-4 if leg == "exact" else 1e-2
+            for a, w in zip(got["cuda"], got["cpu"]):
+                if not close_pose(a, w, tol):
+                    hands = ([np.abs(x - y).max() for x, y in zip(a[2], w[2])]
+                             if len(a) > 2 and len(a[2]) == len(w[2])
+                             else "count differs" if len(a) > 2 else "-")
+                    raise SystemExit(
+                        f"small check ({mt}, {leg}): the card differs from "
+                        f"the CPU path: candidates {a[0].shape} "
+                        f"{w[0].shape} {describe_apart(a[0], w[0])}; "
+                        f"people {a[1].shape} {w[1].shape} "
+                        f"{describe_apart(a[1], w[1])}; hands {hands}")
+            res[leg] = sum(len(r[0]) for r in got["cpu"])
+        out[mt] = res
+    log(f"  small f32 card vs CPU (split ImagePose 184x96, exact and "
+        f"pyramid 2x48x64): candidates {out}")
+    return out
+
+
+def single_image(hand_cfg) -> dict:
+    """Phase 6b (module doc)."""
+    from islx_torch.pipeline.image import ImagePose
+
+    t_phase = time.perf_counter()
+    hb, wb = SI_BUCKET
+    bp, cp, hp = si_weights()
+    frames = bgr_frames(np.random.RandomState(13), 8, hb, wb)
+    fused = ImagePose(bp, hp, fused=True, hand_cfg=hand_cfg)
+    start = heat_quantile(fused.pipe.body, frames, 26, 0.99)
+    with uncounted():
+        thre1 = calibrate_people(fused.pipe, frames, start, "single image",
+                                 tries=24)
+    pose_cfg = fused.pipe.body.cfg
+    split = ImagePose(bp, hp, hand_cfg=hand_cfg)
+    split.body.cfg = pose_cfg
+    with uncounted():                                     # warm-up
+        fused(frames[0])
+        split(frames[0])
+    set_counts(dict.fromkeys(ALL_KERNELS, 0))   # the path's run starts here
+    res = {"bucket": [hb, wb], "thre1": thre1, "hand": hand_cfg.stages}
+    res["fused"], _ = image_leg(fused, frames, "fused bf16")
+    res["split"], boxes = image_leg(split, frames, "split bf16")
+    size = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
+    res["split"]["crops_word_equal_cpu"] = split_crops_match_cpu(
+        frames, boxes, size)
+
+    with uncounted():
+        qb, qh = quantize_on(bp, hp, list(frames), hand_cfg, "cuda")
+    for name, fused_mode in (("fused_int8", True), ("split_int8", False)):
+        pose = ImagePose(qb, qh, fused=fused_mode, hand_cfg=hand_cfg)
+        body_of(pose).cfg = pose_cfg
+        pose(frames[0])                                   # warm-up
+        with watched_convs(chunk=8) as seen:      # a frame with hands
+            pose(frames[res["split"]["frames_with_person_and_hand"][0]])
+        times = []
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pose(f)
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[name] = {"convs_checked": seen["convs"],
+                     "quantizes_checked": seen["quantizes"],
+                     "conv_shapes": len(seen["shapes"]),
+                     "ms_per_call": statistics.median(times),
+                     "ms_per_call_range": [min(times), max(times)]}
+        log(f"  ImagePose {name}: one call's {seen['convs']} conv_q and "
+            f"{seen['quantizes']} quantize calls word-equal to their plain "
+            f"versions; {res[name]['ms_per_call']:.2f} ms/call")
+        del pose
+
+    res["body_standalone"] = body_standalone_leg(hand_cfg)
+    res["multi_body"] = multi_body_leg(bp, frames[:4], thre1)
+    res["multi_hand"] = multi_hand_leg(
+        hp, bgr_frames(np.random.RandomState(14), 8, 368, 368))
+
+    coco = ImagePose(cp, hp, "coco", hand_cfg=hand_cfg)
+    coco.body.cfg = dataclasses.replace(
+        coco.body.cfg, thre2=-0.5,
+        thre1=heat_quantile(coco.body, frames[:2], 19, 0.5))
+    with watched_nms() as nms:
+        cand, subset, hands = coco(frames[0])
+    if not (np.isfinite(cand).all() and subset.shape[1:] == (20,)
+            and nms["calls"] == 1):
+        raise SystemExit("single image (coco): output out of range")
+    res["coco"] = {"candidates": len(cand), "people": len(subset),
+                   "hands": len(hands), "nms_checked": nms["calls"]}
+    log(f"  ImagePose coco split: {len(cand)} candidates, {len(subset)} "
+        f"people, {len(hands)} hands; NMS mask bit-equal")
+    res["small_cpu"] = small_cpu_checks(bp, cp, hp)
+    res["exact"] = exact_leg(bp, frames[:4], thre1)
+
+    launches = kernel_counts()
+    res["launches"] = launches
+    if min(launches.values()) < 1:
+        raise SystemExit(f"single image: a kernel of the path was not "
+                         f"launched: {launches}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches in phase 6b: {launches}; {res['seconds']:.1f} s")
+    return res
+
+
+PARITY_STAGES = ("body_resize", "body_cpm", "body_maps", "body_peaks",
+                 "paf_limbs", "grouping", "hand_resize", "hand_cpm",
+                 "hand_maps", "hand_peaks")
+
+
+def profile_calls(calls, stages) -> dict:
+    """torch.profiler over one call of each ``calls`` entry (name ->
+    callable, each warmed up first): device ms per stage range, the port's
+    kernels (in no range), the device's busy share of the call's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in calls.items():
+        fn()                                              # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        stage_ms = dict.fromkeys(stages, 0.0)
+        kernel_ms: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name in stage_ms:
+                stage_ms[e.name] += e.device_time_total / 1e3
+            elif (e.device_type == DeviceType.CUDA
+                  and e.name not in stage_ms):   # not the ranges' own spans
+                kernel_ms[e.name] = (kernel_ms.get(e.name, 0.0)
+                                     + e.device_time_total / 1e3)
+        device_ms = sum(kernel_ms.values())
+        if device_ms <= 0:
+            raise SystemExit(f"profile: the {name} trace holds no device "
+                             f"time")
+        port = {k: sum(ms for n, ms in kernel_ms.items()
+                       if re.search(rf"(^|::){k}(<[^>]*>)?(\(|$)", n))
+                for k in PORT_KERNELS}
+        out[name] = {"wall_ms": wall, "device_ms": device_ms,
+                     "device_busy_share": device_ms / wall,
+                     "operations": sum(1 for e in prof.events()
+                                       if e.device_type == DeviceType.CUDA
+                                       and e.name not in stage_ms),
+                     "stage_ms": {k: v for k, v in stage_ms.items() if v},
+                     "port_kernel_ms": {k: v for k, v in port.items() if v}}
+        log(f"  profile {name}: wall {wall:.1f} ms, device "
+            f"{device_ms:.2f} ms ({100 * device_ms / wall:.1f}% busy, "
+            f"{out[name]['operations']} operations); "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items() if v))
+    return out
+
+
+PARITY_STAGES = ("body_resize", "body_cpm", "body_maps", "body_peaks",
+                 "paf_limbs", "grouping", "hand_resize", "hand_cpm",
+                 "hand_maps", "hand_peaks")
+
+
+def profile_parity() -> dict:
+    """One parity Body call (720x1280, f32) and one Hand call (256 px
+    crop, four scales) under torch.profiler (profile_calls)."""
+    from islx_torch.core.config import HandConfig, PoseConfig
+    from islx_torch.pose.body import Body
+    from islx_torch.pose.hand import Hand
+
+    bp, hp = parity_weights()
+    body = Body(bp, config=PoseConfig(), compute_dtype=torch.float32)
+    hand = Hand(hp, config=HandConfig(), compute_dtype=torch.float32)
+    rng = np.random.RandomState(7)
+    frame = seeded_frame(rng, 720, 1280)
+    crop = seeded_frame(rng, 256, 256)
+    calibrate_body(body, frame, body.cfg.max_peaks)
+    return profile_calls({"body": lambda: body(frame),
+                          "hand": lambda: hand(crop)}, PARITY_STAGES)
+
+
+def profile_image(hand_cfg) -> dict:
+    """One ImagePose call of each mode (bf16, phase 6b's frames, weights
+    and thresholds) under torch.profiler (profile_calls)."""
+    from islx_torch.pipeline.image import ImagePose
+
+    hb, wb = SI_BUCKET
+    bp, _, hp = si_weights()
+    frames = bgr_frames(np.random.RandomState(13), 8, hb, wb)
+    fused = ImagePose(bp, hp, fused=True, hand_cfg=hand_cfg)
+    calibrate_people(fused.pipe, frames,
+                     heat_quantile(fused.pipe.body, frames, 26, 0.99),
+                     "profile", tries=24)
+    split = ImagePose(bp, hp, hand_cfg=hand_cfg)
+    split.body.cfg = fused.pipe.body.cfg
+    return profile_calls({"image_fused": lambda: fused(frames[0]),
+                          "image_split": lambda: split(frames[0])}, STAGES)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2931,6 +3553,9 @@ def main(argv=None) -> int:
                       help="run phases 1-3 and 7 only: build the kernels "
                            "and hold each against its plain version, with "
                            "times")
+    mode.add_argument("--single", action="store_true",
+                      help="run phases 1-2 and 6b only: for iterating on "
+                           "the single-image and split pipelines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2968,7 +3593,16 @@ def main(argv=None) -> int:
         log("[P] fused step under torch.profiler, full width, bf16")
         prof = [profile_step(hand_cfg), profile_step(hand_160),
                 profile_step(hand_160, int8=True)]
-        return finish({"profile": prof, "card": card})
+        log("[P] the parity Body and Hand (f32), and ImagePose fused and "
+            "split (bf16), under torch.profiler")
+        return finish({"profile": prof, "parity_profile": profile_parity(),
+                       "image_profile": profile_image(hand_cfg),
+                       "card": card})
+
+    if args.single:
+        log("[6b] single image and the split pipelines, full width")
+        return finish({"single_image": single_image(hand_cfg), "card": card,
+                       "seconds": time.perf_counter() - t_start})
 
     log("[3] kernels against their plain versions")
     # smooth: the fused step's shape, translation's and a ragged one; bands:
@@ -3083,6 +3717,11 @@ def main(argv=None) -> int:
     parity, body, frame = parity_path()
     parity_small_check()
 
+    log("[6b] single image and the split pipelines, full width: ImagePose "
+        "fused and split (bf16, int8, coco), the standalone body step, the "
+        "exact construction, the body and hand pyramids")
+    single = single_image(hand_cfg)
+
     log("[7] labelling and PAF kernels, device ms per launch")
     cc_launch_split(cc_rows)
     paf_launch_split(paf_rows[0], body, frame)
@@ -3093,6 +3732,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches,
                 "serving_launches": serve["launches"].get(name, 0),
                 "extraction_launches": extract["launches"][
+                    "label_components" if name == "cc_label" else name],
+                "single_image_launches": single["launches"][
                     "label_components" if name == "cc_label" else name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
@@ -3119,7 +3760,7 @@ def main(argv=None) -> int:
               quant_rows)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
-        "training": train, "parity": parity,
+        "training": train, "parity": parity, "single_image": single,
         "card": card, "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 

@@ -142,9 +142,6 @@ def main(argv=None):
     if args.pipeline or args.mesh_data:
         p.error("--pipeline/--mesh-data are not ported yet (multi-device, "
                 "ROADMAP.md §1 item 8)")
-    if args.model_type == "coco":
-        p.error("--model-type coco is not ported yet (the coco net, "
-                "ROADMAP.md §1 item 5)")
     if args.init and args.init.endswith(".caffemodel"):
         p.error("--init with a .caffemodel is not ported yet (caffe "
                 "loading, ROADMAP.md §1 item 5)")

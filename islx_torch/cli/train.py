@@ -58,9 +58,6 @@ def main(argv=None):
     if args.mesh_data or args.mesh_model != 1:
         p.error("--mesh-data/--mesh-model are not ported yet (multi-device, "
                 "ROADMAP.md §1 item 8)")
-    if args.model_type == "coco":
-        p.error("--model-type coco is not ported yet (the coco net, "
-                "ROADMAP.md §1 item 5)")
 
     from islx_torch.core.config import TranslatorConfig
     from islx_torch.core.runtime import resolve_device

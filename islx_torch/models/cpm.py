@@ -1,4 +1,5 @@
-"""Convolutional Pose Machine nets (BODY_25 and the hand CPM) in PyTorch.
+"""Convolutional Pose Machine nets (BODY_25, COCO-18 and the hand CPM) in
+PyTorch.
 
 Port of ``islx/models/cpm.py`` (float path). Layer names equal the caffe
 blob names, so weights carry across by name. Public inputs and outputs keep
@@ -115,6 +116,36 @@ def body25_spec() -> Dict[str, object]:
     return {"trunk": _vgg_trunk(prelu_tail=True), "stages": stages}
 
 
+def coco_spec() -> Dict[str, object]:
+    """COCO-18 spec (islx/models/cpm.py:130): VGG trunk with ReLU tail, then
+    six stages of two branches, L1 (38 PAF channels) and L2 (19 heat)."""
+    heads: Dict[str, List[Conv]] = {}
+    for L, cout in (("L1", 38), ("L2", 19)):
+        heads[f"block1_{L}"] = [
+            Conv(f"conv5_1_CPM_{L}", 128, 128, 3, 1, "relu"),
+            Conv(f"conv5_2_CPM_{L}", 128, 128, 3, 1, "relu"),
+            Conv(f"conv5_3_CPM_{L}", 128, 128, 3, 1, "relu"),
+            Conv(f"conv5_4_CPM_{L}", 128, 512, 1, 0, "relu"),
+            Conv(f"conv5_5_CPM_{L}", 512, cout, 1, 0, "none", head=True),
+        ]
+        for i in range(2, 7):
+            # the reference's no-ReLU list names Mconv7_stage6_L1 twice and
+            # never Mconv7_stage6_L2, so the final heatmap head is
+            # ReLU-clamped while every other stage head is linear
+            head_act = "relu" if (i == 6 and L == "L2") else "none"
+            heads[f"block{i}_{L}"] = [
+                Conv(f"Mconv1_stage{i}_{L}", 185, 128, 7, 3, "relu"),
+                Conv(f"Mconv2_stage{i}_{L}", 128, 128, 7, 3, "relu"),
+                Conv(f"Mconv3_stage{i}_{L}", 128, 128, 7, 3, "relu"),
+                Conv(f"Mconv4_stage{i}_{L}", 128, 128, 7, 3, "relu"),
+                Conv(f"Mconv5_stage{i}_{L}", 128, 128, 7, 3, "relu"),
+                Conv(f"Mconv6_stage{i}_{L}", 128, 128, 1, 0, "relu"),
+                Conv(f"Mconv7_stage{i}_{L}", 128, cout, 1, 0, head_act,
+                     head=True),
+            ]
+    return {"trunk": _vgg_trunk(prelu_tail=False), "heads": heads}
+
+
 def hand_spec() -> Dict[str, object]:
     """CPM hand spec: VGG trunk + stage1 + 5 refinement stages."""
     trunk: List[Layer] = [
@@ -155,7 +186,7 @@ def hand_spec() -> Dict[str, object]:
     return {"trunk": trunk, "stage1": stage1, "stages": stages}
 
 
-SPECS = {"body25": body25_spec, "hand": hand_spec}
+SPECS = {"body25": body25_spec, "coco": coco_spec, "hand": hand_spec}
 
 
 def _iter_convs(node):
@@ -227,10 +258,12 @@ def maxpool2_int8(x_q: torch.Tensor) -> torch.Tensor:
 
 
 class CPM(nn.Module):
-    """A CPM net (``"body25"`` or ``"hand"``) with caffe-named layers.
+    """A CPM net (``"body25"``, ``"coco"`` or ``"hand"``) with caffe-named
+    layers.
 
     ``forward`` takes NHWC input and returns NHWC f32 maps at /8:
-    body25 -> (paf [B,h,w,52], heat [B,h,w,26]); hand -> heat [B,h,w,22].
+    body25 -> (paf [B,h,w,52], heat [B,h,w,26]); coco -> (paf [B,h,w,38],
+    heat [B,h,w,19]); hand -> heat [B,h,w,22].
     """
 
     def __init__(self, model_type: str):
@@ -354,6 +387,19 @@ class CPM(nn.Module):
         tout = torch.cat([out0, heat0, paf], dim=1)
         return paf, self._b25_stage(tout, 1, "L1", cd)
 
+    def coco(self, x: torch.Tensor, cd) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NCHW -> (paf, heat) NCHW; islx/models/cpm.py:433-447 (each
+        branch of a stage is a ``_seq`` chain, as in islx)."""
+        heads = self.spec["heads"]
+        out1 = self._seq(x, self.spec["trunk"], cd)
+        a = self._seq(out1, heads["block1_L1"], cd)
+        b = self._seq(out1, heads["block1_L2"], cd)
+        for i in range(2, 7):
+            x2 = torch.cat([a, b, out1], dim=1)
+            a = self._seq(x2, heads[f"block{i}_L1"], cd)
+            b = self._seq(x2, heads[f"block{i}_L2"], cd)
+        return a, b
+
     def hand(self, x: torch.Tensor, cd, stages: int = 6) -> List[
             torch.Tensor]:
         """NCHW -> the heat NCHW of stages 1..``stages`` (the reference
@@ -373,8 +419,8 @@ class CPM(nn.Module):
         # an NHWC tensor permuted to NCHW is channels_last already
         x = x_nhwc.permute(0, 3, 1, 2)
         with true_f32():
-            if self.model_type == "body25":
-                paf, heat = self.body25(x, compute_dtype)
+            if self.model_type in ("body25", "coco"):
+                paf, heat = getattr(self, self.model_type)(x, compute_dtype)
                 return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
             return self.hand(x, compute_dtype, stages)[-1].permute(
                 0, 2, 3, 1)

@@ -4,7 +4,9 @@
 the CUDA kernel of :mod:`islx_torch.ops.paf_sample` on the card, its plain
 version on the CPU. The rest is the fused step's scoring on the /8 grid +
 on-device compaction (``score_limbs_cell`` with int8-counted cells and
-``compact_connections``), batched over frames.
+``compact_connections``), batched over frames, and islx's other /8
+scorers (``score_limbs_mxu``, ``score_limbs_fused``), which read the same
+/8 samples.
 
 Every K x K candidate pair of a limb samples ``mid_num`` points on its line;
 each sample lands on a cell of the net-resolution PAF grid. The line
@@ -22,7 +24,7 @@ import torch
 
 from islx_torch.core.runtime import div, fma_rn, rdiv, sqrt_rn
 from islx_torch.ops.paf_sample import (LimbTable, _inv_mid, _samples_t,
-                                       paf_sample)
+                                       paf_sample, sum_plan)
 
 # Limb connection tables (reference: src/body.py:109-126).
 LIMB_SEQ_BODY25 = np.array(
@@ -109,10 +111,17 @@ def score_limbs_cell(paf8: torch.Tensor, peaks_xy: torch.Tensor,
                      peaks_valid: torch.Tensor, limb_seq: np.ndarray,
                      map_idx: np.ndarray, stride: int = 8,
                      thre2: float = 0.05, mid_num: int = 10,
-                     orig_h: float = None) -> LimbScores:
+                     orig_h: float = None, count_dtype=torch.int32,
+                     seq: bool = True) -> LimbScores:
     """paf8 [B,h8,w8,P], peaks_xy [B,C,K,2], peaks_valid [B,C,K] -> all
     K x K pair scores of every limb. One limb at a time, as the JAX code
-    maps over limbs, to bound the [B, K*K, cells] count tensor."""
+    maps over limbs, to bound the [B, K*K, cells] count tensor.
+
+    ``count_dtype`` and ``seq`` are islx's memory and scheduling choices
+    (int8 counts, limbs vmapped): the counts are the same integers <=
+    mid_num and the limbs independent, so neither changes a result; the
+    counts are int32 here (``scatter_add_``)."""
+    del count_dtype, seq
     bsz, h8, w8, _ = paf8.shape
     if orig_h is None:
         orig_h = h8 * stride
@@ -142,6 +151,96 @@ def score_limbs_cell(paf8: torch.Tensor, peaks_xy: torch.Tensor,
         swdps.append(swdp.reshape(bsz, k, k))
         oks.append(ok.reshape(bsz, k, k))
     return LimbScores(score=torch.stack(swdps, 1), ok=torch.stack(oks, 1))
+
+
+def _sampled8(paf_flat: torch.Tensor, cell: torch.Tensor, chans) -> tuple:
+    """The (x, y) PAF values at each /8 sample: paf_flat [B,cells,P], cell
+    [B,K,K,mid] -> (sx, sy) [B,K,K,mid]. islx's mxu scorer reads them
+    with a one-hot matmul, its fused scorer with a compare-select reduce
+    over the cells and its ``take`` variant with a gather: each selects
+    the one value exactly, so here it is a gather."""
+    bsz = cell.shape[0]
+    idx = cell.reshape(bsz, -1)
+    return tuple(torch.gather(paf_flat[:, :, ch], 1, idx).reshape(cell.shape)
+                 for ch in chans)
+
+
+def _limb_tail(sx, sy, unit, norm, valid, thre2, mid_num, orig_h) -> tuple:
+    """One limb's score and ok from its sampled values: each sample's dot
+    ``fma(sy, uy, sx*ux)`` (the hit count's), the mean's sum over the
+    2*mid products as multiply-adds in (sample, x/y) order, lane-split as
+    :data:`islx_torch.ops.paf_sample.SUM_LANES` says, then
+    ``fma(total, 1/mid, prior)``. That gives the words of islx's ``take``
+    scorer at mid 10; its mxu and reduce scorers sum in other orders inside
+    their fused programs, so their scores agree within f32 rounding of the
+    sum, and ok exactly (tests/test_torch_batch_modes.py)."""
+    ux, uy = unit[..., 0], unit[..., 1]
+    score_mid = fma_rn(sy, uy[..., None], sx * ux[..., None])
+    vf, vec = sum_plan(mid_num)
+    lanes = [torch.full_like(norm, -0.0 if j else 0.0) for j in range(vf)]
+    for m in range(vec):
+        lanes[m % vf] = fma_rn(sy[..., m], uy, fma_rn(sx[..., m], ux,
+                                                    lanes[m % vf]))
+    while len(lanes) > 1:
+        half = len(lanes) // 2
+        lanes = [lanes[j] + lanes[j + half] for j in range(half)]
+    total = lanes[0]
+    for m in range(vec, mid_num):
+        total = fma_rn(sy[..., m], uy, fma_rn(sx[..., m], ux, total))
+    prior = torch.clamp_max(rdiv(0.5 * float(np.float32(orig_h)), norm)
+                            - 1.0, 0.0)
+    swdp = fma_rn(total, torch.full_like(total, _inv_mid(mid_num)), prior)
+    hits = (score_mid > float(np.float32(thre2))).sum(-1)
+    ok = (hits > 0.8 * mid_num) & (swdp > 0) & valid
+    return swdp, ok
+
+
+def _score_limbs8(paf8, peaks_xy, peaks_valid, limb_seq, map_idx, stride,
+                  thre2, mid_num, orig_h) -> LimbScores:
+    """The /8 scorers' shared body: every limb's K x K pairs sampled at
+    their nearest /8 cells."""
+    bsz, h8, w8, _ = paf8.shape
+    if orig_h is None:
+        orig_h = h8 * stride
+    paf_flat = paf8.reshape(bsz, h8 * w8, -1).float()
+    swdps, oks = [], []
+    for limb, chans in zip(np.asarray(limb_seq).tolist(),
+                           np.asarray(map_idx).tolist()):
+        unit, norm, valid, cell = _pair_samples8(
+            peaks_xy, peaks_valid, limb, stride, h8, w8, mid_num)
+        sx, sy = _sampled8(paf_flat, cell, chans)
+        swdp, ok = _limb_tail(sx, sy, unit, norm, valid, thre2, mid_num,
+                              orig_h)
+        swdps.append(swdp)
+        oks.append(ok)
+    return LimbScores(score=torch.stack(swdps, 1), ok=torch.stack(oks, 1))
+
+
+def score_limbs_mxu(paf8: torch.Tensor, peaks_xy: torch.Tensor,
+                    peaks_valid: torch.Tensor, limb_seq: np.ndarray,
+                    map_idx: np.ndarray, stride: int = 8,
+                    thre2: float = 0.05, mid_num: int = 10,
+                    orig_h: float = None) -> LimbScores:
+    """islx/ops/paf.py:147 over a batch: paf8 [B,h8,w8,P], peaks_xy
+    [B,C,K,2], peaks_valid [B,C,K] -> scores and ok [B,L,K,K]; each sample
+    reads its nearest /8 cell, the line integral sums the samples' dots."""
+    return _score_limbs8(paf8, peaks_xy, peaks_valid, limb_seq, map_idx,
+                         stride, thre2, mid_num, orig_h)
+
+
+def score_limbs_fused(paf8: torch.Tensor, peaks_xy: torch.Tensor,
+                      peaks_valid: torch.Tensor, limb_seq: np.ndarray,
+                      map_idx: np.ndarray, stride: int = 8,
+                      thre2: float = 0.05, mid_num: int = 10,
+                      orig_h: float = None, impl: str = "reduce"
+                      ) -> LimbScores:
+    """islx/ops/paf.py:293 over a batch (``impl`` ``"reduce"`` or
+    ``"take"``: islx's two ways to read the samples, the same values): the
+    same function as :func:`score_limbs_mxu`."""
+    if impl not in ("reduce", "take"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return _score_limbs8(paf8, peaks_xy, peaks_valid, limb_seq, map_idx,
+                         stride, thre2, mid_num, orig_h)
 
 
 def compact_connections(ls: LimbScores, m: int = 48) -> CompactConnections:

@@ -5,7 +5,7 @@ Static resizes use host-built [n_out, n_in] matrices, contracted in f32
 (``resize_cubic`` inside ``true_f32``). The batched hand-crop resize gathers
 each output's 4 taps from each crop's (start, width) on the device and sums
 them in the order of islx's jitted program, word for word at every probed
-shape (``SUM_ORDER``).
+shape (``SUM_ORDER``) and wherever its rule holds.
 """
 from __future__ import annotations
 
@@ -86,15 +86,19 @@ def resize_cubic(img: torch.Tensor, h_out: int, w_out: int,
 # ``dynamic_crop_resize_batch`` (word-equal at every entry,
 # tests/test_torch_crop_resize.py) on an Intel Xeon (family 6, model 207:
 # AVX2, FMA, AVX-512 F/BW/VL/VNNI/BF16/FP16, AMX), and may differ on
-# another instruction set. It depends on all three sizes: (168 columns, 40
-# long) sums as a chain at 46 rows and mod 4 at 92. Listed: the shapes
-# that the port's tests and chip_smoke.py run, and every 184-row bucket the
-# fused step and the server can meet (``pipeline.batch_pose.bucket_for``:
-# 96 to 432 wide in steps of 8, 1:2 portrait to 21:9) at both crop sizes.
-# Any other shape sums as a chain and warns (:func:`_sum_order`): a crop
-# value there may round unlike islx's. tests/test_torch_crop_resize.py
-# holds every entry word-equal to islx and probes the tests' shapes (the
-# one order of the three that gives islx's words).
+# another instruction set.
+#
+# The orders follow a rule (``_first_order``, ``_second_order``): the first
+# dot's by the frame width W mod 64 (W a multiple of 8, 3 channels, a crop
+# of at least 92 px, whatever the frame height), the second's by the crop
+# size. It fits every entry of the table below, and held at 32 shapes it
+# was not fitted on: W 64-88 and 440-648, frame heights 160, 200 and 240,
+# crops of 92, 128 and 368 px (tests/test_torch_crop_resize.py HELD_OUT).
+# Outside it (a crop under 92 px, a W off the multiples of 8, an unprobed
+# crop size) only the table's entries are known; any other shape sums as a
+# chain and warns (:func:`_sum_order`): a crop value there may round unlike
+# islx's. E.g. (168 columns, 40 long) sums as a chain at 46 rows and mod 4
+# at 92.
 CHAIN, EVEN_ODD, MOD4 = "chain", "even_odd", "mod4"
 SUM_ORDER = {
     # first dot, (crop size, W * C, H): 48x48, 40x56, 48x64, 48x72 and
@@ -124,11 +128,31 @@ for _order, _widths in _BUCKET_FIRST.items():
         SUM_ORDER[(552, 184, _w)] = CHAIN
 del _order, _widths, _w
 
+# the rule: the first dot's order by W mod 64, the second's by crop size
+FIRST_BY_W64 = {0: CHAIN, 8: EVEN_ODD, 16: MOD4, 24: MOD4, 32: EVEN_ODD,
+                40: CHAIN, 48: MOD4, 56: MOD4}
+SECOND_BY_SIZE = {92: EVEN_ODD, 128: CHAIN, 160: EVEN_ODD, 184: CHAIN,
+                  368: MOD4}
+RULE_MIN_CROP = 92
 
-def _sum_order(shape) -> str:
-    """:data:`SUM_ORDER` for a dot's (rows, columns, contracted length);
-    a shape that was not probed sums as a chain, with a warning."""
-    order = SUM_ORDER.get(shape)
+
+def _first_order(size: int, w: int, c: int, h: int):
+    """The first dot's order by the rule, or None outside its region."""
+    if c == 3 and size >= RULE_MIN_CROP and w % 8 == 0:
+        return FIRST_BY_W64[w % 64]
+    return None
+
+
+def _second_order(size: int, c: int, w: int):
+    """The second dot's order by the rule, or None outside its region."""
+    return SECOND_BY_SIZE.get(size) if c == 3 else None
+
+
+def _sum_order(shape, rule=None) -> str:
+    """The order of a dot of shape (rows, columns, contracted length): the
+    table's entry, else the rule's (``rule``), else a chain, with a
+    warning."""
+    order = SUM_ORDER.get(shape) or rule
     if order is None:
         warnings.warn(
             f"dynamic_crop_resize_batch: dot shape {shape} has no probed "
@@ -224,8 +248,9 @@ def dynamic_crop_resize_batch(frames: torch.Tensor, fidx: torch.Tensor,
 
     islx contracts two dense [out, n_in] matrices; here each output
     gathers its 4 taps and sums them in the order of XLA's CPU program
-    (:data:`SUM_ORDER`), so the crops are islx's words on every device at
-    every shape the table holds (others warn)."""
+    (:data:`SUM_ORDER` and its rule), so the crops are islx's words on
+    every device at every shape the table or the rule covers (others
+    warn)."""
     h, wd, c = frames.shape[1], frames.shape[2], frames.shape[3]
     n = fidx.shape[0]
     index, weight, odd = _axis_taps((h, wd), out_size,
@@ -240,7 +265,8 @@ def dynamic_crop_resize_batch(frames: torch.Tensor, fidx: torch.Tensor,
     def wrow(t):
         return wy[:, :, t, None, None]
 
-    order = _sum_order((out_size, wd * c, h))
+    order = _sum_order((out_size, wd * c, h),
+                       _first_order(out_size, wd, c, h))
     x = _tap_sum(lambda t: wrow(t) * rows(t) + 0.0,
                  lambda t: (wrow(t), rows(t)), order,
                  odd[0, :, :, None, None])
@@ -252,7 +278,8 @@ def dynamic_crop_resize_batch(frames: torch.Tensor, fidx: torch.Tensor,
     def wcol(t):
         return wx[:, None, :, t, None]
 
-    order = _sum_order((out_size * c, out_size, wd))
+    order = _sum_order((out_size * c, out_size, wd),
+                       _second_order(out_size, c, wd))
     x = _tap_sum(lambda t: wcol(t) * cols(t) + 0.0,
                  lambda t: (wcol(t), cols(t)), order,
                  odd[1, :, None, :, None])

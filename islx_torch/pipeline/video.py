@@ -1,5 +1,6 @@
-"""Video input feeding the batched device pipelines (copy of the parts of
-islx/pipeline/video.py the translation path uses).
+"""Video input feeding the batched device pipelines, and annotated video
+output (copy of the parts of islx/pipeline/video.py the translation path
+and the demo CLIs use).
 
 Frames are read with cv2.VideoCapture (or decoded straight to bucketed I420
 by ffmpeg) and metadata probed with ffprobe, cv2 as the fallback. A
@@ -26,22 +27,27 @@ def _have(binary: str) -> bool:
 class VideoMeta:
     width: int
     height: int
+    fps: float = 30.0
 
 
 def probe(path: str) -> VideoMeta:
-    """Frame size via ffprobe (reference demo_video.py:18-34), cv2
+    """Frame size and rate via ffprobe (reference demo_video.py:18-34), cv2
     fallback when ffprobe is unavailable."""
     if _have("ffprobe"):
         cmd = ["ffprobe", "-v", "error", "-select_streams", "v:0",
                "-show_streams", "-print_format", "json", path]
         s = json.loads(subprocess.check_output(cmd).decode())["streams"][0]
-        return VideoMeta(width=int(s["width"]), height=int(s["height"]))
+        num, den = s.get("avg_frame_rate", "30/1").split("/")
+        fps = float(num) / float(den) if float(den) else 30.0
+        return VideoMeta(width=int(s["width"]), height=int(s["height"]),
+                         fps=fps)
     import cv2
 
     cap = cv2.VideoCapture(path)
     try:
         return VideoMeta(width=int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
-                         height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+                         height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                         fps=cap.get(cv2.CAP_PROP_FPS) or 30.0)
     finally:
         cap.release()
 
@@ -133,6 +139,49 @@ def flat_batches(frames: Iterator[np.ndarray], batch: int
         while len(buf) < batch:
             buf.append(buf[-1])
         yield np.concatenate(buf), n
+
+
+class FrameWriter:
+    """Write BGR u8 frames to a video file: an ffmpeg rawvideo pipe
+    (reference Writer, demo_video.py:95-117) where ffmpeg is installed,
+    else cv2.VideoWriter (mp4v)."""
+
+    def __init__(self, path: str, fps: float, frame_hw: Tuple[int, int],
+                 vcodec: str = "libx264"):
+        self.path = path
+        h, w = frame_hw
+        if _have("ffmpeg"):
+            cmd = ["ffmpeg", "-y", "-loglevel", "error",
+                   "-f", "rawvideo", "-pix_fmt", "bgr24",
+                   "-s", f"{w}x{h}", "-r", str(fps), "-i", "-",
+                   "-an", "-vcodec", vcodec, path]
+            self._proc = subprocess.Popen(cmd, stdin=subprocess.PIPE)
+            self._cv = None
+        else:
+            import cv2
+
+            self._proc = None
+            self._cv = cv2.VideoWriter(
+                path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+
+    def __call__(self, frame: np.ndarray) -> None:
+        if self._proc is not None:
+            self._proc.stdin.write(np.ascontiguousarray(frame).tobytes())
+        else:
+            self._cv.write(frame)
+
+    def close(self) -> None:
+        if self._proc is not None:
+            self._proc.stdin.close()
+            self._proc.wait()
+        else:
+            self._cv.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class Prefetcher:

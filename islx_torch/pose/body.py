@@ -7,6 +7,11 @@ upsample, de-pad, back-to-original resize, scale averaging, gaussian NMS
 with first-K selection (the ``nms_first_k`` CUDA kernel) and the exact PAF
 line integrals (the ``paf_sample`` CUDA kernel). The greedy person grouping
 runs on the host (:mod:`islx_torch.ops.grouping`).
+
+Each stage of a call runs inside a ``torch.profiler.record_function`` range
+named after it (``body_resize``, ``body_cpm``, ``body_maps``, ``body_peaks``,
+``paf_limbs``, ``grouping``), so a profile splits the call's device time by
+stage (``chip_smoke.py --profile``).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from islx_torch.core import weights as W
 from islx_torch.core.config import PoseConfig
@@ -38,9 +44,11 @@ def _compute_maps(forward, img: torch.Tensor, cfg: PoseConfig,
     for s in cfg.scale_search:
         scale = s * cfg.boxsize / h
         hs, ws = output_size(h, scale), output_size(w, scale)
-        scaled = resize_cubic(img, hs, ws, saturate_uint8=True)
-        x, (pd, pr) = pad_normalize(scaled, cfg.stride, cfg.pad_value)
-        paf, heat = forward(x, compute_dtype)
+        with record_function("body_resize"):
+            scaled = resize_cubic(img, hs, ws, saturate_uint8=True)
+            x, (pd, pr) = pad_normalize(scaled, cfg.stride, cfg.pad_value)
+        with record_function("body_cpm"):
+            paf, heat = forward(x, compute_dtype)
         hp, wp = x.shape[1], x.shape[2]
 
         def to_orig(maps):  # [1,h8,w8,C] -> [H,W,C] (src/body.py:69-78)
@@ -48,13 +56,14 @@ def _compute_maps(forward, img: torch.Tensor, cfg: PoseConfig,
             m = m[:hp - pd, :wp - pr]                  # remove stride pad
             return resize_cubic(m, h, w)               # back to original
 
-        heat_o, paf_o = to_orig(heat), to_orig(paf)
-        if cfg.ref_compat_averaging:
-            # reference bug (src/body.py:80): avg += avg + heat/n
-            heat_sum = heat_sum + heat_sum + div(heat_o, n)
-        else:
-            heat_sum = heat_sum + div(heat_o, n)
-        paf_sum = paf_sum + div(paf_o, n)
+        with record_function("body_maps"):
+            heat_o, paf_o = to_orig(heat), to_orig(paf)
+            if cfg.ref_compat_averaging:
+                # reference bug (src/body.py:80): avg += avg + heat/n
+                heat_sum = heat_sum + heat_sum + div(heat_o, n)
+            else:
+                heat_sum = heat_sum + div(heat_o, n)
+            paf_sum = paf_sum + div(paf_o, n)
     return heat_sum, paf_sum
 
 
@@ -84,10 +93,6 @@ class Body:
         if forward_fn is not None:
             self._forward = lambda x, cd: forward_fn(weights, x, cd)
             return
-        if model_type != "body25":
-            raise NotImplementedError(
-                "model 'coco': coco_forward is not ported yet "
-                "(ROADMAP.md §1 item 7)")
         if weights is None:
             weights = W.init_params(model_type)
         elif isinstance(weights, str):
@@ -112,16 +117,19 @@ class Body:
         cfg = self.cfg
         with true_f32():
             heat, paf = self._maps(ori_img)
-            pk = find_peaks(heat[:, :, :cfg.njoint - 1], cfg.thre1,
-                            cfg.max_peaks)
-            ls = score_limbs(paf, pk.xy, pk.valid, self.limbs, cfg.thre2,
-                             cfg.mid_num, orig_h=float(ori_img.shape[0]))
+            with record_function("body_peaks"):
+                pk = find_peaks(heat[:, :, :cfg.njoint - 1], cfg.thre1,
+                                cfg.max_peaks)
+            with record_function("paf_limbs"):
+                ls = score_limbs(paf, pk.xy, pk.valid, self.limbs, cfg.thre2,
+                                 cfg.mid_num, orig_h=float(ori_img.shape[0]))
         return pk, ls
 
     def __call__(self, ori_img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """BGR u8 [H,W,3] -> (candidate[N,4], subset[P,njoint+2])."""
         pk, ls = self.peaks_and_limbs(ori_img)
-        return grouping.assemble(
-            pk.xy.cpu().numpy(), pk.score.cpu().numpy(),
-            pk.count.cpu().numpy(), ls.score.cpu().numpy(),
-            ls.ok.cpu().numpy(), self.limb_seq, self.cfg.njoint)
+        with record_function("grouping"):
+            return grouping.assemble(
+                pk.xy.cpu().numpy(), pk.score.cpu().numpy(),
+                pk.count.cpu().numpy(), ls.score.cpu().numpy(),
+                ls.ok.cpu().numpy(), self.limb_seq, self.cfg.njoint)

@@ -4,6 +4,9 @@
 missing parts, as the reference does (src/hand.py:24-74). On the device: the
 scale pyramid, CPM forward, heatmap averaging and the per-part
 connected-component peaks (the ``cc_label`` CUDA kernel).
+
+Each stage of a call runs inside a ``torch.profiler.record_function`` range
+(``hand_resize``, ``hand_cpm``, ``hand_maps``, ``hand_peaks``).
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig
@@ -30,14 +34,17 @@ def _hand_heatmap(forward, img: torch.Tensor, cfg: HandConfig,
     for s in cfg.scale_search:
         scale = s * cfg.boxsize / h
         hs, ws = output_size(h, scale), output_size(w, scale)
-        scaled = resize_cubic(img, hs, ws, saturate_uint8=True)
-        x, (pd, pr) = pad_normalize(scaled, cfg.stride, cfg.pad_value)
-        heat = forward(x, compute_dtype)
+        with record_function("hand_resize"):
+            scaled = resize_cubic(img, hs, ws, saturate_uint8=True)
+            x, (pd, pr) = pad_normalize(scaled, cfg.stride, cfg.pad_value)
+        with record_function("hand_cpm"):
+            heat = forward(x, compute_dtype)
         hp, wp = x.shape[1], x.shape[2]
-        m = resize_cubic(heat[0], hp, wp)
-        m = m[:hp - pd, :wp - pr]
-        m = resize_cubic(m, h, w)
-        heat_sum = heat_sum + div(m, n)       # correct mean (src/hand.py:56)
+        with record_function("hand_maps"):
+            m = resize_cubic(heat[0], hp, wp)
+            m = m[:hp - pd, :wp - pr]
+            m = resize_cubic(m, h, w)
+            heat_sum = heat_sum + div(m, n)   # correct mean (src/hand.py:56)
     return heat_sum
 
 
@@ -80,5 +87,7 @@ class Hand:
         missing."""
         with true_f32():
             heat = self._heatmap(crop)
-            pk = find_hand_peaks(heat[:, :, :self.cfg.n_parts], self.cfg.thre)
+            with record_function("hand_peaks"):
+                pk = find_hand_peaks(heat[:, :, :self.cfg.n_parts],
+                                     self.cfg.thre)
         return pk.xy.cpu().numpy()

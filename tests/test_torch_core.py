@@ -168,7 +168,10 @@ def test_port_modules_import_no_jax_or_islx():
             "islx_torch.cli.translate", "islx_torch.isl.dataset",
             "islx_torch.isl.train", "islx_torch.core.checkpoint",
             "islx_torch.models.pose_train", "islx_torch.cli.train",
-            "islx_torch.cli.pose_train"} <= set(names)
+            "islx_torch.cli.pose_train", "islx_torch.pipeline.image",
+            "islx_torch.cli.camera", "islx_torch.cli.demo",
+            "islx_torch.cli.dump_features",
+            "islx_torch.cli.demo_video"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {sorted(names)!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -200,6 +203,18 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         FusedPosePipeline(W.init_params("body25"), W.init_params("hand"))
+    # the split pipelines and the single-image path
+    from islx_torch.pipeline.batch_pose import (BatchedBodyPipeline,
+                                                BatchedHandPipeline)
+    from islx_torch.pipeline.image import ImagePose
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedBodyPipeline(W.init_params("body25"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedHandPipeline(W.init_params("hand"))
+    for fused in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ImagePose(fused=fused)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedTranslatePipeline(batch=2)
     video = tmp_path / "clip.mp4"

@@ -56,6 +56,20 @@ SHAPES = [(48, 48, 92), (48, 48, 160), (48, 48, 184), (40, 56, 46),
 # 96 to 432 wide, 1:2 portrait to 21:9) at both crop sizes
 BUCKETS = [(184, w, size) for w in range(96, 433, 8) for size in (160, 184)
            if (184, w, size) not in SHAPES]
+# shapes the sum-order rule (first dot by W mod 64, second by crop size)
+# was not fitted on, each probed before it was adopted: widths beyond the
+# buckets (64-88, 440-648), frame heights 160, 200 and 240, crops of 92,
+# 128 and 368 px; none of them is in SUM_ORDER
+HELD_OUT = [(184, 440, 160), (184, 464, 184), (184, 488, 160),
+            (184, 512, 184), (184, 544, 160), (184, 648, 184),
+            (184, 88, 160), (184, 64, 184), (184, 72, 160), (184, 80, 184),
+            (160, 328, 160), (160, 288, 184), (160, 200, 160),
+            (160, 144, 184), (240, 328, 160), (240, 432, 184),
+            (240, 256, 160), (240, 104, 184), (184, 328, 128),
+            (184, 144, 128), (184, 256, 128), (184, 328, 368),
+            (184, 144, 368), (184, 200, 368), (184, 144, 92),
+            (184, 328, 92), (184, 104, 92), (184, 256, 92), (184, 96, 128),
+            (184, 96, 368), (184, 584, 184), (200, 328, 160)]
 ORDERS = (TR.CHAIN, TR.EVEN_ODD, TR.MOD4)
 _jitted = jax.jit(JR.dynamic_crop_resize_batch, static_argnums=(5, 6))
 
@@ -101,15 +115,17 @@ def probe_orders(h, w, size) -> list:
     return found
 
 
-@pytest.mark.parametrize("h,w,size", SHAPES + BUCKETS)
+@pytest.mark.parametrize("h,w,size", SHAPES + BUCKETS + HELD_OUT)
 def test_crop_resize_word_equal_to_islx_jitted(h, w, size):
     frames, boxes = _inputs(h, w, size)
     tb = [torch.from_numpy(b) for b in boxes]
     for saturate in (False, True):
+        with warnings.catch_warnings():   # every shape here has an order
+            warnings.simplefilter("error")
+            got = TR.dynamic_crop_resize_batch(torch.from_numpy(frames),
+                                               *tb, size, saturate).numpy()
         want = np.asarray(_jitted(jnp.asarray(frames),
                                   *map(jnp.asarray, boxes), size, saturate))
-        got = TR.dynamic_crop_resize_batch(torch.from_numpy(frames), *tb,
-                                           size, saturate).numpy()
         assert got.dtype == want.dtype == np.float32
         assert got.shape == want.shape == (10, size, size, 3)
         np.testing.assert_array_equal(got.view(np.uint32),
@@ -125,6 +141,29 @@ def test_sum_order_is_the_one_order_with_islx_words(h, w, size):
     finds, and the seeded crops tell the three orders apart."""
     assert probe_orders(h, w, size) == [
         (TR.SUM_ORDER[(size, w * 3, h)], TR.SUM_ORDER[(size * 3, size, w)])]
+
+
+def test_rule_fits_every_table_entry():
+    """The sum-order rule gives the table's order at every entry inside its
+    region (first dot: 3 channels, W a multiple of 8, a crop of >= 92 px;
+    second dot: a crop size it names), and the held-out shapes are outside
+    the table."""
+    fitted = 0
+    for (rows, cols, k), order in TR.SUM_ORDER.items():
+        if rows == 3 * cols:                      # second dot
+            rule = TR._second_order(cols, 3, k)
+        elif cols % 3 == 0:                       # first dot, 3 channels
+            rule = TR._first_order(rows, cols // 3, 3, k)
+        else:
+            rule = None
+        if rule is not None:
+            assert rule == order, (rows, cols, k)
+            fitted += 1
+    assert fitted == len(TR.SUM_ORDER) - 2   # (46,168,40), (138,46,56)
+    for h, w, size in HELD_OUT:
+        assert (size, w * 3, h) not in TR.SUM_ORDER
+        assert TR._first_order(size, w, 3, h) is not None
+        assert TR._second_order(size, 3, w) is not None
 
 
 def test_unprobed_shape_warns():

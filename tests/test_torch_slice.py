@@ -8,6 +8,13 @@ buffer (peak coordinates, counts, pair indices, hand boxes, hand peaks and
 found bits) must be word-equal; the f16 score words agree within one f16
 rounding. The inputs are deterministic: the arm-joint heat channels get a
 +1 bias so arms chain and both hand crops fire.
+
+For the word-equal comparison the port's step runs islx's jitted f32 CPM
+forwards in place of its own nets: the f32 CPMs sum in another order,
+which depends on torch's intra-op thread count, and a peak at an NMS
+near-tie can flip (ROADMAP.md §3). The port's own CPMs are held to islx's
+on the same net inputs within rtol/atol 1e-4, the tolerance of
+tests/test_torch_pose.py::test_real_nets_match.
 """
 import numpy as np
 import pytest
@@ -41,6 +48,23 @@ def slice_params():
 
 POSE = dict(max_peaks=8, thre2=-0.5)
 HAND = dict(scale_search=(0.25,))        # 92 px crops
+
+
+def islx_nets(body, hand):
+    """islx's jitted f32 forwards as the port's net callables."""
+    fb = jax.jit(lambda p, x: JC.body25_forward(p, x, jnp.float32))
+    fh = jax.jit(lambda p, x, s: JC.hand_forward(p, x, jnp.float32, s),
+                 static_argnums=2)
+
+    def body_net(x, cd=torch.float32):
+        return tuple(torch.from_numpy(np.array(m))
+                     for m in fb(body, jnp.asarray(x.numpy())))
+
+    def hand_net(x, cd, stages=6):
+        return torch.from_numpy(np.array(fh(hand, jnp.asarray(x.numpy()),
+                                            stages)))
+
+    return body_net, hand_net
 
 
 def thre1_for(net, frames) -> float:
@@ -80,6 +104,21 @@ def _check_word_equal(slice_params, input_format, select):
     b, hb, wb = 2, 48, 48
     frames = (np.random.RandomState(0).rand(b, hb, wb, 3) * 255
               ).astype(np.uint8)
+    # the port's CPMs against islx's on the step's net inputs, and on
+    # 92 px hand crops
+    body_net, hand_net = islx_nets(body, hand)
+    x = torch.from_numpy(frames).float() / 256.0 - 0.5
+    crops = torch.from_numpy(np.random.RandomState(1).rand(
+        4, 92, 92, 3).astype(np.float32) - 0.5)
+    with torch.no_grad():
+        for g, w in zip(tp.body.net(x, torch.float32),
+                        body_net(x, torch.float32)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4)
+        np.testing.assert_allclose(
+            tp.hand.net(crops, torch.float32).numpy(),
+            hand_net(crops, torch.float32).numpy(), rtol=1e-4, atol=1e-4)
+    tp.body.net, tp.hand.net = body_net, hand_net
     thre1 = thre1_for(tp.body.net, frames)
     flat = frames.reshape(-1)
     if input_format == "yuv420":

@@ -275,11 +275,9 @@ def test_pose_train_cli_matches_islx_from_one_init(hand_samples, tmp_path):
     (TCLI.main, ["--keras-bundle", "one.keras"], "item 7"),
     (TCLI.main, ["--mesh-data", "2"], "item 8"),
     (TCLI.main, ["--mesh-model", "2"], "item 8"),
-    (TCLI.main, ["--model-type", "coco"], "item 5"),
     (PCLI.main, ["--pipeline", "2"], "item 8"),
     (PCLI.main, ["--mesh-data", "2"], "item 8"),
     (PCLI.main, ["--init", "pose.caffemodel"], "item 5"),
-    (PCLI.main, ["--model-type", "coco"], "item 5"),
 ])
 def test_unported_flags_name_their_roadmap_item(main, argv, item, capsys):
     base = (["root", "--labels", "l.csv", "--out", "h.npz"]
