@@ -107,6 +107,29 @@ Phases (any failure exits non-zero and the last line is never printed):
    of the 8x21 planes in one call against 8 calls; a COCO ImagePose call;
    small f32 runs (split, exact, pyramid; BODY_25 and COCO) card == CPU;
    every kernel must have launched;
+6c. the offline tools and the Caffe API at full width, the launch
+   counters set to 0 at its start: seeded BODY_25 and hand states written
+   as .caffemodel files by a wire-format writer in this script (about 104
+   and 147 MB), read with weights.load (seconds a file; equal word for
+   word) and converted to .npz by cli/convert; the fused step at B=192 in
+   184x144 from I420 (bf16, the gated hand config) on the .caffemodel
+   weights, its NMS mask launch bit-equal, its integer planes word-equal
+   to the same step on the .npz weights; profiling.trace around one more
+   step (the Chrome trace names body_cpm and nms_mask_kernel); the quantize
+   CLI's core on frames already at their target sizes (no cv2 here: a
+   same-size resize is a copy), its state files reloaded with
+   weights.load and one int8 fused-160s5 step on them with every conv_q
+   and quantize call word-equal to its plain version; core/caffe_net.Net
+   on the hand CPM (a prototxt from the port's conv table, the
+   .caffemodel's weights) at 368x368 in f32 with TF32 off, within 1e-4
+   (relative) of the port's f32 hand CPM and of the same Net on the CPU,
+   and SGDSolver with an EuclideanLoss at batch 4 for 5 steps on the card
+   and on the CPU (the loss falls; each step's loss within 1e-4 of the
+   CPU's; the params' update within 1e-3 of the CPU's by norm, each
+   blob's within 5e-2), ms per forward and per step; a burst of 8 COCO
+   frames served word-equal to a direct step; nms_mask_rows, conv_q and
+   quantize must have launched and no other kernel. The .keras writers
+   are not run here: this machine has no h5py or keras;
 7. device ms per launch (torch.profiler), after the timed phases, so
    that no profiler runs before them: the labelling kernel's launches, and
    the PAF kernel at phase 3's shape (inputs warm in L2, and L2 flushed
@@ -129,7 +152,7 @@ line.
     python3 chip_smoke.py --kernels
 
 runs phases 1-3 and 7 only and prints their numbers as one JSON line;
-``--single`` runs phases 1-2 and 6b only.
+``--single`` runs phases 1-2 and 6b only, ``--tools`` phases 1-2 and 6c.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -3448,6 +3471,437 @@ def single_image(hand_cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6c: .caffemodel weights, the quantize CLI's core, the Caffe API,
+# served COCO and profiling.trace
+# ---------------------------------------------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b7, v = v & 0x7F, v >> 7
+        out.append(b7 | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _len_field(field: int, data: bytes) -> bytes:
+    return _varint((field << 3) | 2) + _varint(len(data)) + data
+
+
+def caffe_blob(arr: np.ndarray) -> bytes:
+    """A BlobProto: BlobShape dims (field 7, packed dim 1), packed f32
+    data (field 5)."""
+    arr = np.ascontiguousarray(arr, "<f4")
+    dims = _len_field(1, b"".join(_varint(d) for d in arr.shape))
+    return _len_field(7, dims) + _len_field(5, arr.tobytes())
+
+
+def write_caffemodel(path: str, state) -> None:
+    """A weight state as a .caffemodel (protobuf wire format, written
+    here): a new-style ``layer`` (field 100) a conv with its weight and
+    bias blobs, and a single-blob PReLU layer a PReLU conv."""
+    from islx_torch.core import weights as W
+
+    flat = W.to_flat_dict(state)
+    with open(path, "wb") as f:
+        f.write(_len_field(1, b"islx_torch"))
+        for name, entry in state.items():
+            f.write(_len_field(100, _len_field(1, name.encode())
+                               + _len_field(2, b"Convolution")
+                               + _len_field(7, caffe_blob(
+                                   flat[f"{name}.weight"]))
+                               + _len_field(7, caffe_blob(
+                                   flat[f"{name}.bias"]))))
+            if "p" in entry:
+                pk = W._prelu_key(name)
+                f.write(_len_field(100, _len_field(1, pk.encode())
+                                   + _len_field(2, b"PReLU")
+                                   + _len_field(7, caffe_blob(
+                                       flat[f"{pk}.weight"]))))
+
+
+def hand_prototxt(loss: bool = False) -> tuple:
+    """The hand CPM as a Caffe prototxt, from the port's conv table (the
+    trunk's convs and pools, stage 1, five stages over the concat of the
+    previous heat and the trunk) -> (text, the output blob)."""
+    from islx_torch.models import cpm
+
+    spec = cpm.hand_spec()
+    lines = ['name: "islx_hand"', 'input: "data"']
+
+    def seq(layers, bottom, tag):
+        pools = 0
+        for layer in layers:
+            if isinstance(layer, cpm.Pool):
+                pools += 1
+                top = f"pool{pools}_{tag}"
+                lines.append(
+                    f'layer {{ name: "{top}" type: "Pooling" bottom: '
+                    f'"{bottom}" top: "{top}" pooling_param {{ pool: MAX '
+                    f'kernel_size: {layer.k} stride: {layer.s} }} }}')
+                bottom = top
+                continue
+            c = layer
+            lines.append(
+                f'layer {{ name: "{c.name}" type: "Convolution" bottom: '
+                f'"{bottom}" top: "{c.name}" convolution_param {{ '
+                f'num_output: {c.cout} kernel_size: {c.k} pad: {c.pad} }} }}')
+            if c.act == "relu":
+                lines.append(f'layer {{ name: "relu_{c.name}" type: "ReLU" '
+                             f'bottom: "{c.name}" top: "{c.name}" }}')
+            bottom = c.name
+        return bottom
+
+    trunk = seq(spec["trunk"], "data", "trunk")
+    out = seq(spec["stage1"], trunk, "stage1")
+    for i in range(2, 7):
+        lines.append(f'layer {{ name: "concat_stage{i}" type: "Concat" '
+                     f'bottom: "{out}" bottom: "{trunk}" top: '
+                     f'"concat_stage{i}" }}')
+        out = seq(spec["stages"][f"stage{i}"], f"concat_stage{i}",
+                  f"stage{i}")
+    if loss:
+        lines.append(f'layer {{ name: "loss" type: "EuclideanLoss" bottom: '
+                     f'"{out}" bottom: "label" top: "loss" }}')
+    return "\n".join(lines) + "\n", out
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def caffe_weights_leg(work: str, hand_cfg) -> tuple:
+    """6c step 1: seeded full-width BODY_25 and hand states (parity_weights:
+    the arm joints' heat raised) written as .caffemodel files, read with
+    W.load (seconds a file, the states equal word for word), converted
+    to .npz by cli/convert; the fused step at B=192 in 184x144 from I420
+    (bf16, ``hand_cfg``, thre1 lowered until a quarter of the hand boxes
+    form) on the .caffemodel weights, its NMS mask launch held bit-equal,
+    its integer planes (hand peaks too) word-equal to the same step on the
+    .npz weights -> (result, the pipeline, its frames, bucket, thre1, the
+    hand .caffemodel path)."""
+    from islx_torch.cli import convert
+    from islx_torch.core import weights as W
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+
+    res = {}
+    paths, states = {}, {}
+    for mt, state in zip(("body25", "hand"), parity_weights()):
+        path = os.path.join(work, f"{mt}.caffemodel")
+        t0 = time.perf_counter()
+        write_caffemodel(path, state)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = W.load(path, mt)
+        read_s = time.perf_counter() - t0
+        if not all(torch.equal(loaded[n][k], state[n][k])
+                   for n in state for k in state[n]):
+            raise SystemExit(f"tools: {mt}.caffemodel read back other "
+                             f"weights")
+        npz = os.path.join(work, f"{mt}.npz")
+        with contextlib.redirect_stdout(sys.stderr):
+            convert.main([path, npz, "--model-type", mt])
+        paths[mt], states[mt] = (path, npz), loaded
+        res[mt] = {"bytes": os.path.getsize(path), "write_s": write_s,
+                   "read_s": read_s}
+        log(f"  {mt}.caffemodel: {os.path.getsize(path) / 2 ** 20:.1f} MiB "
+            f"written in {write_s:.2f} s, read by W.load in {read_s:.2f} s "
+            f"(equal word for word); cli/convert -> .npz")
+    b, orig_hw = 192, (512, 384)
+    hb, wb = 184, 144
+    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
+    pipe = FusedPosePipeline(states["body25"], states["hand"],
+                             hand_cfg=hand_cfg, compute_dtype=torch.bfloat16,
+                             device="cuda")
+    flat = pipe.upload_frames(host)
+    with uncounted():       # lowered until hand boxes form: the hand net's
+        thre1 = calibrate_thre1(pipe, flat, b, hb, wb, orig_hw)  # weights
+        for _ in range(16):                                 # then count
+            boxes = pipe.unpack(pipe.device_step_flat(
+                flat, b, hb, wb, orig_hw, thre1,
+                input_format="yuv420").cpu().numpy(), b)[1]
+            if (boxes[:, 3] > 0).sum() >= b // 4:
+                break
+            thre1 *= 0.75
+    with watched_nms() as nms:
+        packed = pipe.device_step_flat(flat, b, hb, wb, orig_hw, thre1,
+                                       input_format="yuv420").cpu().numpy()
+    with uncounted():
+        pipe_npz = FusedPosePipeline(
+            W.load(paths["body25"][1], "body25"),
+            W.load(paths["hand"][1], "hand"), hand_cfg=hand_cfg,
+            compute_dtype=torch.bfloat16, device="cuda")
+        want = pipe_npz.device_step_flat(
+            pipe_npz.upload_frames(host), b, hb, wb, orig_hw, thre1,
+            input_format="yuv420").cpu().numpy()
+        del pipe_npz
+    got_p, want_p = integer_planes(pipe, packed, b), integer_planes(
+        pipe, want, b)
+    diff = [k for k in want_p if not np.array_equal(got_p[k], want_p[k])]
+    if diff or nms["calls"] != 1 or not (got_p["boxes"][:, 3] > 0).any():
+        raise SystemExit(f"tools: the step on .caffemodel weights differs "
+                         f"from the .npz one in {diff} ({nms['calls']} NMS "
+                         f"calls checked, "
+                         f"{int((got_p['boxes'][:, 3] > 0).sum())} hand "
+                         f"boxes)")
+    res["step"] = {"batch": b, "bucket": [hb, wb], "thre1": thre1,
+                   "peaks": int(got_p["count"].sum()),
+                   "hand_boxes": int((got_p["boxes"][:, 3] > 0).sum()),
+                   "integer_planes_equal_npz": True,
+                   "words_equal": int((packed == want).sum()),
+                   "words": int(packed.size), "nms_checked": nms["calls"]}
+    log(f"  fused step B={b} on the .caffemodel weights: integer planes "
+        f"word-equal to the .npz weights' ({res['step']['peaks']} peaks, "
+        f"{res['step']['hand_boxes']} hand boxes); NMS mask bit-equal")
+    return res, pipe, flat, (b, hb, wb, orig_hw, thre1), paths["hand"][0]
+
+
+def trace_leg(work: str, pipe, flat, geom) -> dict:
+    """6c step 5: utils/profiling.trace around one fused step writes a
+    Chrome trace naming the step's ranges and the NMS mask kernel."""
+    from islx_torch.utils import profiling
+
+    b, hb, wb, orig_hw, thre1 = geom
+    with profiling.trace(os.path.join(work, "trace")) as prof:
+        pipe.device_step_flat(flat, b, hb, wb, orig_hw, thre1,
+                              input_format="yuv420").cpu()
+    with open(prof.trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    want = ("body_cpm", "paf_limbs", "hand_cpm", "nms_mask_kernel")
+    missing = [w for w in want if not any(w in n for n in names)]
+    if missing:
+        raise SystemExit(f"tools: the trace names no {missing}")
+    res = {"trace_bytes": os.path.getsize(prof.trace_path),
+           "events": len(names), "named": list(want),
+           "cache": profiling.log_compile_cache()}
+    log(f"  profiling.trace: {res['trace_bytes'] / 2 ** 20:.1f} MiB Chrome "
+        f"trace naming {', '.join(want)}; {res['cache']}")
+    return res
+
+
+def quantize_leg(work: str, hand_160) -> dict:
+    """6c step 2: the quantize CLI's core (cli/quantize.calibration_inputs
+    on frames already at their target sizes, then quantize_to_file on the
+    card) for BODY_25 (184x144) and the hand (368x368), the states
+    reloaded with W.load; one int8 fused-160s5 step on them at B=192 with
+    every conv_q and quantize call held word-equal to its plain version."""
+    from islx_torch.cli import quantize as QCLI
+    from islx_torch.core import weights as W
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+
+    rng = np.random.RandomState(21)
+    out = {}
+    for mt, seed, (h, w) in (("body25", 0, (184, 144)),
+                             ("hand", 1, (368, 368))):
+        x = QCLI.calibration_inputs(list(bgr_frames(rng, 8, h, w)), mt)
+        t0 = time.perf_counter()
+        with uncounted():
+            path = QCLI.quantize_to_file(W.init_params(mt, seed), mt, x,
+                                         os.path.join(work, f"{mt}-int8.pt"),
+                                         device="cuda")
+        state = W.load(path, mt)
+        n_q = sum("w_q" in e for e in state.values())
+        if n_q != len(state):
+            raise SystemExit(f"tools: {n_q}/{len(state)} {mt} layers int8")
+        out[mt] = state
+        log(f"  quantize: {mt} calibrated on 8 {h}x{w} frames and written "
+            f"to {os.path.basename(path)} in {time.perf_counter() - t0:.1f}"
+            f" s; W.load reads {n_q} int8 layers")
+    b, orig_hw, hb, wb = 192, (512, 384), 184, 144
+    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
+    pipe = FusedPosePipeline(out["body25"], out["hand"], hand_cfg=hand_160,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    flat = pipe.upload_frames(host)
+    with uncounted():
+        thre1 = calibrate_thre1(pipe, flat, b, hb, wb, orig_hw)
+    seen = main_path_convs(pipe, flat, b, hb, wb, orig_hw, thre1)
+    convs = 114 + 17 + 7 * (hand_160.stages - 1)
+    quants = 103 + 2 + (hand_160.stages - 1)
+    if (seen["convs"], seen["quantizes"]) != (convs, quants):
+        raise SystemExit(f"tools: the int8 step checked {seen['convs']} "
+                         f"convs and {seen['quantizes']} quantizations, want"
+                         f" {convs} and {quants}")
+    log(f"  int8 fused-160s5 step on the CLI's states: all {convs} conv_q "
+        f"and {quants} quantize calls word-equal to their plain versions")
+    return {"convs_checked": seen["convs"],
+            "quantizes_checked": seen["quantizes"],
+            "conv_shapes": len(seen["shapes"]),
+            "max_abs_err": seen["max_abs_err"], "thre1": thre1}
+
+
+def caffe_net_leg(work: str, hand_caffemodel: str) -> dict:
+    """6c step 3: core/caffe_net.Net on the hand CPM (a prototxt from the
+    port's conv table, weights from the .caffemodel) at 368x368, f32 with
+    TF32 off: the output against the port's f32 hand CPM on the card and
+    against the same Net on the CPU (within 1e-4 of the largest
+    magnitude); SGDSolver with an EuclideanLoss at batch 4 for 5 steps on
+    the card and on the CPU (the loss falls; each step's loss within 1e-4
+    of the CPU's, relative; the 5 steps' update of all params within 1e-3
+    of the CPU's by norm, each blob's within 5e-2); ms per forward and per
+    step."""
+    from islx_torch.core import caffe_net as CN
+    from islx_torch.core import weights as W
+
+    text, out = hand_prototxt()
+    proto = os.path.join(work, "hand.prototxt")
+    with open(proto, "w") as f:
+        f.write(text)
+    rng = np.random.RandomState(22)
+    frames = bgr_frames(rng, 4, 368, 368)
+    x = np.ascontiguousarray((frames.astype(np.float32) / 256.0 - 0.5)
+                             .transpose(0, 3, 1, 2))
+    net = CN.Net(proto, hand_caffemodel, CN.TEST, device="cuda")
+    got = torch.from_numpy(net.forward(data=x[:1])[out])
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.forward(data=x[:1])
+        times.append((time.perf_counter() - t0) * 1e3)
+    cpm_net = W.build("hand", W.load(hand_caffemodel, "hand"), "cuda",
+                      torch.float32)
+    with torch.no_grad():
+        want = cpm_net(torch.from_numpy(frames[:1]).cuda().float() / 256.0
+                       - 0.5).permute(0, 3, 1, 2)
+    cpu = CN.Net(proto, hand_caffemodel, CN.TEST, device="cpu")
+    want_cpu = torch.from_numpy(cpu.forward(data=x[:1])[out])
+    err_cpm, err_cpu = rel_err(got, want), rel_err(got, want_cpu)
+    if not (got.shape == (1, 22, 46, 46) and err_cpm <= 1e-4
+            and err_cpu <= 1e-4):
+        raise SystemExit(f"tools: caffe_net hand {tuple(got.shape)} is "
+                         f"{err_cpm:.2e} from the port's CPM, {err_cpu:.2e} "
+                         f"from the CPU Net (relative)")
+    res = {"forward_shape": list(got.shape), "rel_err_cpm": err_cpm,
+           "rel_err_cpu": err_cpu, "ms_per_forward": statistics.median(times),
+           "ms_per_forward_range": [min(times), max(times)]}
+    log(f"  caffe_net.Net hand at 368x368 f32: {err_cpm:.2e} from the "
+        f"port's CPM, {err_cpu:.2e} from the CPU Net (relative); "
+        f"{res['ms_per_forward']:.2f} ms/forward")
+
+    text, out = hand_prototxt(loss=True)
+    with open(os.path.join(work, "hand_train.prototxt"), "w") as f:
+        f.write(text)
+    solver = os.path.join(work, "solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(f'net: "{os.path.join(work, "hand_train.prototxt")}"\n'
+                f'base_lr: 1e-9\nmomentum: 0.9\nweight_decay: 0.0005\n')
+    label = np.zeros((4, 22, 46, 46), np.float32)
+    card = CN.SGDSolver(solver, device="cuda")
+    card.net.copy_from(hand_caffemodel)
+    start = {(n, k): v.detach().cpu().clone()
+             for n, e in card.net.params.items() for k, v in e.items()}
+    losses, step_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(card.step(1, data=x, label=label))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    host = CN.SGDSolver(solver, device="cpu")
+    host.net.copy_from(hand_caffemodel)
+    losses_cpu = [host.step(1, data=x, label=label) for _ in range(5)]
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, losses_cpu)]
+    blob_err, diff2, upd2 = {}, 0.0, 0.0
+    for (n, k), v0 in start.items():
+        d_card = card.net.params[n][k].detach().cpu().double() - v0.double()
+        d_cpu = host.net.params[n][k].detach().double() - v0.double()
+        diff, upd = float((d_card - d_cpu).norm()), float(d_cpu.norm())
+        blob_err[f"{n}.{k}"] = diff / max(upd, 1e-30)
+        diff2, upd2 = diff2 + diff * diff, upd2 + upd * upd
+    upd_err = (diff2 / upd2) ** 0.5
+    worst = max(blob_err, key=blob_err.get)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and max(loss_err) <= 1e-4
+            and upd_err <= 1e-3 and blob_err[worst] <= 5e-2):
+        raise SystemExit(f"tools: SGDSolver losses {losses}, CPU "
+                         f"{losses_cpu}; updates {upd_err:.2e} from the "
+                         f"CPU's by norm, {worst} {blob_err[worst]:.2e}")
+    res.update({"solver_losses": losses, "solver_losses_cpu": losses_cpu,
+                "solver_loss_rel_err": loss_err,
+                "solver_update_rel_err": upd_err,
+                "solver_worst_blob": [worst, blob_err[worst]],
+                "solver_batch": 4,
+                "ms_per_step": statistics.median(step_ms[1:]),
+                "ms_per_step_range": [min(step_ms[1:]), max(step_ms[1:])]})
+    log(f"  SGDSolver hand, batch 4, 5 steps: loss {losses[0]:.1f} -> "
+        f"{losses[-1]:.1f} (CPU's within {loss_err[0]:.1e} first, "
+        f"{loss_err[-1]:.1e} fifth; updates {upd_err:.1e} by norm, "
+        f"{worst} {blob_err[worst]:.1e}); "
+        f"{res['ms_per_step']:.1f} ms/step")
+    return res
+
+
+def served_coco_leg(hand_cfg) -> dict:
+    """6c step 4: a burst of 8 COCO frames (184x144) through MicroBatcher,
+    word-equal to a direct COCO step, the NMS mask launch bit-equal."""
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.serve import MicroBatcher
+
+    _, cp, hp = si_weights()
+    hb, wb = SERVE_BUCKETS[0]
+    burst = bgr_frames(np.random.RandomState(23), 8, hb, wb)
+    pipe = FusedPosePipeline(cp, hp, "coco", hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    with uncounted():
+        thre1 = heat_quantile(pipe.body, burst, 19, 0.99)
+        thre1 = calibrate_people(pipe, burst, thre1, "served coco", tries=24)
+    b = MicroBatcher(pipe, max_batch=8, max_wait_ms=1000.0)
+    try:
+        with watched_nms() as nms:
+            got = serve_batch(b, burst)
+    finally:
+        b.close()
+    if b.stats()["batches"] != 1 or nms["calls"] != 1:
+        raise SystemExit(f"served coco: {b.stats()['batches']} batches, "
+                         f"{nms['calls']} NMS calls checked")
+    with uncounted():
+        packed = pipe.device_step(burst, (hb, wb)).cpu().numpy()
+    results, boxes, peaks = pipe.assemble(packed, 8)
+    if not same_results(got, results, boxes, peaks, pipe):
+        raise SystemExit("served coco: the burst differs from a direct step")
+    res = {"frames": 8, "thre1": thre1,
+           "candidates": sum(len(r.candidate) for r in got),
+           "people": sum(len(r.subset) for r in got),
+           "hands": sum(len(r.hands) for r in got), "word_equal": True}
+    log(f"  served COCO burst of 8: word-equal to a direct step "
+        f"({res['candidates']} candidates, {res['people']} people, "
+        f"{res['hands']} hands); NMS mask bit-equal")
+    return res
+
+
+def tools(hand_cfg, hand_160) -> dict:
+    """Phase 6c (module doc)."""
+    t_phase = time.perf_counter()
+    set_counts(dict.fromkeys(ALL_KERNELS, 0))   # the path's run starts here
+    work = tempfile.mkdtemp(prefix="islx_tools_")
+    try:
+        res = {}
+        res["caffemodel"], pipe, flat, geom, hand_cm = caffe_weights_leg(
+            work, hand_cfg)
+        res["trace"] = trace_leg(work, pipe, flat, geom)
+        del pipe, flat
+        torch.cuda.empty_cache()
+        res["quantize"] = quantize_leg(work, hand_160)
+        torch.cuda.empty_cache()
+        res["caffe_net"] = caffe_net_leg(work, hand_cm)
+        torch.cuda.empty_cache()
+        res["served_coco"] = served_coco_leg(hand_cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = kernel_counts()
+    res["launches"] = launches
+    path = ("nms_mask_rows", "conv_q", "quantize")
+    if (min(launches[k] for k in path) < 1
+            or any(n for k, n in launches.items() if k not in path)):
+        raise SystemExit(f"tools: want {', '.join(path)} launched and no "
+                         f"other kernel: {launches}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches in phase 6c: {launches}; {res['seconds']:.1f} s")
+    return res
+
+
 PARITY_STAGES = ("body_resize", "body_cpm", "body_maps", "body_peaks",
                  "paf_limbs", "grouping", "hand_resize", "hand_cpm",
                  "hand_maps", "hand_peaks")
@@ -3498,11 +3952,6 @@ def profile_calls(calls, stages) -> dict:
             f"{out[name]['operations']} operations); "
             + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items() if v))
     return out
-
-
-PARITY_STAGES = ("body_resize", "body_cpm", "body_maps", "body_peaks",
-                 "paf_limbs", "grouping", "hand_resize", "hand_cpm",
-                 "hand_maps", "hand_peaks")
 
 
 def profile_parity() -> dict:
@@ -3556,6 +4005,10 @@ def main(argv=None) -> int:
     mode.add_argument("--single", action="store_true",
                       help="run phases 1-2 and 6b only: for iterating on "
                            "the single-image and split pipelines")
+    mode.add_argument("--tools", action="store_true",
+                      help="run phases 1-2 and 6c only: .caffemodel "
+                           "weights, the quantize CLI, the Caffe API, "
+                           "served COCO, profiling.trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3602,6 +4055,11 @@ def main(argv=None) -> int:
     if args.single:
         log("[6b] single image and the split pipelines, full width")
         return finish({"single_image": single_image(hand_cfg), "card": card,
+                       "seconds": time.perf_counter() - t_start})
+    if args.tools:
+        log("[6c] .caffemodel weights, the quantize CLI, the Caffe API, "
+            "served COCO and profiling.trace, full width")
+        return finish({"tools": tools(hand_cfg, hand_160), "card": card,
                        "seconds": time.perf_counter() - t_start})
 
     log("[3] kernels against their plain versions")
@@ -3722,6 +4180,10 @@ def main(argv=None) -> int:
         "exact construction, the body and hand pyramids")
     single = single_image(hand_cfg)
 
+    log("[6c] .caffemodel weights, the quantize CLI, the Caffe API, served "
+        "COCO and profiling.trace, full width")
+    tool = tools(hand_cfg, hand_160)
+
     log("[7] labelling and PAF kernels, device ms per launch")
     cc_launch_split(cc_rows)
     paf_launch_split(paf_rows[0], body, frame)
@@ -3734,6 +4196,8 @@ def main(argv=None) -> int:
                 "extraction_launches": extract["launches"][
                     "label_components" if name == "cc_label" else name],
                 "single_image_launches": single["launches"][
+                    "label_components" if name == "cc_label" else name],
+                "tools_launches": tool["launches"][
                     "label_components" if name == "cc_label" else name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
@@ -3761,7 +4225,8 @@ def main(argv=None) -> int:
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
         "training": train, "parity": parity, "single_image": single,
-        "card": card, "seconds": time.perf_counter() - t_start}
+        "tools": tool, "card": card,
+        "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 
 

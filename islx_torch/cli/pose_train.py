@@ -2,9 +2,9 @@
 islx/cli/pose_train.py).
 
     python -m islx_torch.cli.pose_train DATA_DIR --model-type body25|hand
-           --out W.npz [--init W0.npz|.pt] [--epochs 5] [--batch 8]
-           [--lr 1e-4] [--size 184] [--seed 0] [--compute-dtype f32|bf16]
-           [--device cuda]
+           --out W.npz [--init W0.npz|.pt|.caffemodel] [--epochs 5]
+           [--batch 8] [--lr 1e-4] [--size 184] [--seed 0]
+           [--compute-dtype f32|bf16] [--device cuda]
 
 Sample format, one .npz per image:
     image      u8  [H,W,3] BGR
@@ -121,7 +121,8 @@ def main(argv=None):
                    choices=["body25", "coco", "hand"])
     p.add_argument("--out", required=True, help="output checkpoint (.npz)")
     p.add_argument("--init", default=None,
-                   help="starting weights (.npz/.pt; default: fresh init)")
+                   help="starting weights (.npz/.pt/.caffemodel; default: "
+                        "fresh init)")
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -142,9 +143,6 @@ def main(argv=None):
     if args.pipeline or args.mesh_data:
         p.error("--pipeline/--mesh-data are not ported yet (multi-device, "
                 "ROADMAP.md §1 item 8)")
-    if args.init and args.init.endswith(".caffemodel"):
-        p.error("--init with a .caffemodel is not ported yet (caffe "
-                "loading, ROADMAP.md §1 item 5)")
 
     from islx_torch.core import weights as W
     from islx_torch.core.runtime import resolve_device

@@ -1,7 +1,7 @@
 """Pose serving daemon on the GPU: an HTTP endpoint over the fused step.
 
     python -m islx_torch.cli.serve [--host 127.0.0.1] [--port 8008]
-        [--body-weights W] [--hand-weights W] [--model-type body25]
+        [--body-weights W] [--hand-weights W] [--model-type body25|coco]
         [--max-batch 8] [--max-wait-ms 15] [--int8-after N] [--device cuda]
 
     curl -s -X POST --data-binary @image.jpg localhost:8008/pose
@@ -56,7 +56,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8008)
     p.add_argument("--body-weights", default=None)
     p.add_argument("--hand-weights", default=None)
-    p.add_argument("--model-type", default="body25", choices=["body25"])
+    p.add_argument("--model-type", default="body25",
+                   choices=["body25", "coco"])
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=15.0)
     p.add_argument("--int8-after", type=int, default=None, metavar="N",

@@ -2,19 +2,21 @@
 islx/cli/train.py).
 
     extract   (islx_torch.cli.extract) -> FEATURES_ROOT/<video_id>/<frame>.json
-    train     (this CLI)               -> head .npz (+ optional bundle)
-    translate (islx_torch.cli.translate --head H.npz | --bundle DIR)
+    train     (this CLI)               -> head .npz (+ optional bundles)
+    translate (islx_torch.cli.translate --head H.npz | --bundle DIR|X.keras)
 
     python -m islx_torch.cli.train FEATURES_ROOT --labels LABELS.csv
            --out HEAD.npz [--epochs 20] [--batch 32] [--lr 1e-3] [--seed 0]
-           [--checkpoint-dir DIR] [--bundle DIR --body-weights W
-           --hand-weights W] [--device cuda]
+           [--checkpoint-dir DIR] [--bundle DIR] [--keras-bundle X.keras]
+           [--body-weights W --hand-weights W] [--device cuda]
 
 LABELS.csv: columns ``video_id,expression`` (an expression name from
 islx_torch.isl.expressions, any case). Training is checkpointed every
 epoch and resumes from --checkpoint-dir on restart. The head ``.npz`` is
 islx's format (islx's ``load_npz`` reads it). A bundle holds the body and
-hand weights given (the port's seeded init without them) and the head.
+hand weights given (the port's seeded init without them) and the head:
+a port bundle directory, or a one-model ``.keras`` artifact
+(:mod:`islx_torch.models.one_model`, which islx and stock keras load).
 """
 from __future__ import annotations
 
@@ -38,8 +40,8 @@ def main(argv=None):
     p.add_argument("--bundle", default=None,
                    help="also save a translator bundle to this directory")
     p.add_argument("--keras-bundle", default=None,
-                   help="not ported: the .keras one-model export waits for "
-                        "ROADMAP.md §1 item 7")
+                   help="also export a portable one-model .keras artifact "
+                        "(islx_torch.models.one_model)")
     p.add_argument("--body-weights", default=None)
     p.add_argument("--hand-weights", default=None)
     p.add_argument("--model-type", default="body25",
@@ -52,9 +54,6 @@ def main(argv=None):
                         "item 8")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.keras_bundle:
-        p.error("--keras-bundle is not ported yet (the one-model export, "
-                "ROADMAP.md §1 item 7)")
     if args.mesh_data or args.mesh_model != 1:
         p.error("--mesh-data/--mesh-model are not ported yet (multi-device, "
                 "ROADMAP.md §1 item 8)")
@@ -84,16 +83,26 @@ def main(argv=None):
     T.save_npz(args.out, params)
     print(f"head -> {args.out}")
 
-    if args.bundle:
-        from islx_torch.core import checkpoint as ckpt
+    if args.bundle or args.keras_bundle:
         from islx_torch.core import weights as W
 
         body = (W.load(args.body_weights, args.model_type)
                 if args.body_weights else W.init_params(args.model_type))
         hand = (W.load(args.hand_weights, "hand") if args.hand_weights
                 else W.init_params("hand"))
-        ckpt.save_bundle(args.bundle, body, hand, params, args.model_type)
-        print(f"bundle -> {args.bundle}")
+        if args.bundle:
+            from islx_torch.core import checkpoint as ckpt
+
+            ckpt.save_bundle(args.bundle, body, hand, params,
+                             args.model_type)
+            print(f"bundle -> {args.bundle}")
+        if args.keras_bundle:
+            from islx_torch.models import one_model
+
+            one_model.export_one_model(body, hand, params,
+                                       args.keras_bundle,
+                                       model_type=args.model_type, cfg=cfg)
+            print(f"keras one-model -> {args.keras_bundle}")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 (port of islx/cli/translate.py; reference demo_isl_translate.py).
 
     python -m islx_torch.cli.translate VIDEO [--head H.keras|.h5|.npz]
-        [--body-weights W] [--hand-weights W] [--bundle DIR]
+        [--body-weights W] [--hand-weights W] [--bundle DIR|X.keras]
         [--batched --batch 16] [--camera] [--min-prob P] [--device cuda]
 
 The default is the reference-exact per-frame path (``ISLTranslator``:
@@ -17,9 +17,11 @@ does; ``ISLX_INT8=0`` keeps bf16. Weights are islx ``.npz`` or reference
 ``.pt`` files; without them the nets run the port's seeded random init.
 ``--bundle`` loads a port bundle directory
 (:func:`islx_torch.core.checkpoint.save_bundle`, written by
-``islx_torch.cli.train --bundle``): its body, hand and head in place of
-the separate files. Clips are decoded with cv2, as is ``--camera``;
-``.keras``/``.h5`` heads are read with h5py.
+``islx_torch.cli.train --bundle``) or a one-model ``.keras``/``.h5``
+artifact (:mod:`islx_torch.models.one_model`; ``--keras-bundle``, or
+islx's): its body, hand and head in place of the separate files. Clips
+are decoded with cv2, as is ``--camera``; ``.keras``/``.h5`` heads and
+one-models are read with h5py.
 """
 from __future__ import annotations
 
@@ -51,8 +53,7 @@ def main(argv=None):
                    help="translator head checkpoint (.keras/.h5/.npz)")
     p.add_argument("--bundle", default=None,
                    help="a port translator bundle directory (islx_torch."
-                        "cli.train --bundle); .keras one-models wait for "
-                        "ROADMAP.md §1 item 7")
+                        "cli.train --bundle) or a one-model .keras/.h5")
     p.add_argument("--body-weights", default=None)
     p.add_argument("--hand-weights", default=None)
     p.add_argument("--min-prob", type=float, default=0.0)
@@ -65,9 +66,6 @@ def main(argv=None):
                         "ROADMAP.md §1 item 8")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.bundle and args.bundle.endswith((".keras", ".h5")):
-        p.error("--bundle with a .keras/.h5 one-model is not ported yet "
-                "(its export and import, ROADMAP.md §1 item 7)")
     if args.mesh_data:
         p.error("--mesh-data is not ported yet (multi-device, ROADMAP.md "
                 "§1 item 8)")
@@ -84,7 +82,13 @@ def main(argv=None):
     head_params = load_head(args.head)
     body_params = hand_params = None
     model_type = "body25"
-    if args.bundle:
+    if args.bundle and args.bundle.endswith((".keras", ".h5")):
+        from islx_torch.models import one_model
+
+        model_type = one_model.model_type_of(args.bundle)
+        body_params, hand_params, head_params = \
+            one_model.import_one_model(args.bundle, model_type)
+    elif args.bundle:
         from islx_torch.core import checkpoint as ckpt
 
         body_params, hand_params, head_params, model_type = \

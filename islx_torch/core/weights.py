@@ -7,9 +7,12 @@ int8 layer (:mod:`islx_torch.models.quant`) holds ``{"w_q" int8 OIHW,
 
 * :func:`from_islx_params` carries islx's params (``{name: {"w" HWIO, "b",
   "p"}}`` as numpy) across, so both packages run the very same weights.
-* :func:`load` reads islx ``.npz`` files (``islx.core.weights.save_npz``)
-  and reference ``.pt``/``.pth`` flat caffe dicts; :func:`save_npz` writes
-  the ``.npz``.
+* :func:`load` reads islx ``.npz`` files (``islx.core.weights.save_npz``),
+  reference ``.pt``/``.pth`` flat caffe dicts, ``.caffemodel`` files
+  (:mod:`islx_torch.core.caffe_reader`) and the port's state files
+  (:func:`save_state`: a float or int8 state, as ``python -m
+  islx_torch.cli.quantize`` writes it); :func:`save_npz` writes the
+  ``.npz``.
 * :func:`init_params` is the port's own seeded He-normal init. It does not
   reproduce JAX's threefry bits; comparisons carry islx's params across.
 """
@@ -122,15 +125,54 @@ def save_npz(path: str, state: State) -> None:
                       for k, v in entry.items()})
 
 
+STATE_FORMAT = "islx_torch-state"
+
+
+def save_state(path: str, state: State, model_type: str) -> str:
+    """A weight state, float or int8 (``w_q``/``s_w``/``a_scale``
+    entries), as one ``torch.save`` file at ``path``, which must end in
+    ``.pt``, that :func:`load` reads back (islx writes orbax directories
+    or pickled treedefs here, which need JAX to read). -> the file
+    written."""
+    if not path.endswith(".pt"):
+        raise ValueError(f"{path}: a state file's name ends in .pt")
+    out = os.path.abspath(path)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    torch.save({"format": STATE_FORMAT, "model_type": model_type,
+                "params": {name: dict(entry)
+                           for name, entry in state.items()}},
+               out + ".tmp")
+    os.replace(out + ".tmp", out)
+    return out
+
+
+def _checked_state(blob, path: str, model_type: str) -> State:
+    if blob["model_type"] != model_type:
+        raise ValueError(f"{path}: a {blob['model_type']} state, not "
+                         f"{model_type}")
+    names = [c.name for c in cpm.conv_layers(model_type)]
+    if set(blob["params"]) != set(names):
+        raise ValueError(f"{path}: its layers are not {model_type}'s")
+    return {n: blob["params"][n] for n in names}
+
+
 def load(path: str, model_type: str) -> State:
-    """Weights from an islx ``.npz`` or a reference ``.pt``/``.pth``."""
+    """Weights from an islx ``.npz``, a reference ``.pt``/``.pth`` flat
+    caffe dict, a ``.caffemodel``, or a ``.pt`` state file of
+    :func:`save_state`."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npz":
         return load_npz(path, model_type)
     if ext in (".pt", ".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
+        if sd.get("format") == STATE_FORMAT:
+            return _checked_state(sd, path, model_type)
         return from_flat_dict({k: v.numpy() for k, v in sd.items()},
                               model_type)
+    if ext == ".caffemodel":
+        from islx_torch.core.caffe_reader import read_caffemodel
+
+        return from_flat_dict(read_caffemodel(path), model_type)
     raise ValueError(f"unsupported checkpoint format: {path}")
 
 

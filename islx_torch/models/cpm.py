@@ -204,6 +204,17 @@ def conv_layers(model_type: str) -> List[Conv]:
     return list(_iter_convs(SPECS[model_type]()))
 
 
+def conv_params(c: Conv) -> int:
+    """Weights, bias and PReLU slopes of one conv layer."""
+    return (c.k * c.k * c.cin * c.cout + c.cout
+            + (c.cout if c.act == "prelu" else 0))
+
+
+def param_count(model_type: str) -> int:
+    """Weights, biases and PReLU slopes of every conv layer."""
+    return sum(conv_params(c) for c in conv_layers(model_type))
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------

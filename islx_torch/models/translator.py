@@ -148,6 +148,30 @@ def _str(name) -> str:
     return name.decode() if isinstance(name, bytes) else str(name)
 
 
+def keras_weight_lists(group, entry: dict) -> list:
+    """The ``get_weights()`` list of every weighted layer of the keras 3
+    model whose config ``entry`` is given and whose weights are under the
+    h5 ``group``, in model order. keras saves a model's layers under
+    ``layers/<class in snake case>[_n]``, counted in that order (a
+    Sequential's InputLayer is not among them)."""
+    from islx_torch.models.keras_export import snake
+
+    seen: Dict[str, int] = {}
+    out = []
+    for layer in entry["config"]["layers"]:
+        if (layer["class_name"] == "InputLayer"
+                and entry["class_name"] == "Sequential"):
+            continue
+        base = snake(layer["class_name"])
+        n = seen.get(base, -1) + 1
+        seen[base] = n
+        sub = group["layers"].get(base if n == 0 else f"{base}_{n}")
+        ws = _saved_vars(sub) if sub is not None else []
+        if ws:
+            out.append(ws)
+    return out
+
+
 def _keras_weight_lists(path: str) -> list:
     """The ``get_weights()`` list of every weighted layer of a saved keras
     model, in model order, read with h5py: a keras 3 ``.keras`` archive
@@ -163,15 +187,8 @@ def _keras_weight_lists(path: str) -> list:
         with zipfile.ZipFile(path) as z:
             config = json.loads(z.read("config.json"))
             weights = io.BytesIO(z.read("model.weights.h5"))
-        names = [layer["config"]["name"]
-                 for layer in config["config"]["layers"]]
         with h5py.File(weights, "r") as f:
-            for name in names:
-                group = f.get(f"layers/{name}")
-                ws = _saved_vars(group) if group is not None else []
-                if ws:
-                    out.append(ws)
-        return out
+            return keras_weight_lists(f, config)
     with h5py.File(path, "r") as f:
         root = f["model_weights"] if "model_weights" in f else f
         for name in root.attrs["layer_names"]:
@@ -181,6 +198,156 @@ def _keras_weight_lists(path: str) -> list:
             if ws:
                 out.append(ws)
     return out
+
+
+def keras_head_entry(cfg: Optional[TranslatorConfig] = None,
+                     name: str = "islx_head") -> dict:
+    """The config entry of the reference's keras head
+    (demo_isl_translate.py:72-100), the Sequential islx's
+    ``build_keras_head`` builds, written without keras."""
+    from islx_torch.models.keras_export import DTYPE, initializer
+
+    cfg = cfg or TranslatorConfig()
+    w, f, u = cfg.window_size, cfg.feature_dim, cfg.lstm_units
+    d = cfg.dense_units
+
+    def entry(cls, config, build=None):
+        e = {"module": "keras.layers", "class_name": cls, "config": config,
+             "registered_name": None}
+        if build is not None:
+            e["build_config"] = {"input_shape": build}
+        return e
+
+    def base(lname):
+        return {"name": lname, "trainable": True, "dtype": DTYPE}
+
+    def bn(lname, dim):
+        return entry("BatchNormalization", {
+            **base(lname), "axis": -1, "momentum": 0.99, "epsilon": 0.001,
+            "center": True, "scale": True,
+            "beta_initializer": initializer("Zeros"),
+            "gamma_initializer": initializer("Ones"),
+            "moving_mean_initializer": initializer("Zeros"),
+            "moving_variance_initializer": initializer("Ones"),
+            "beta_regularizer": None, "gamma_regularizer": None,
+            "beta_constraint": None, "gamma_constraint": None,
+            "synchronized": False}, [None] + dim)
+
+    def lstm(lname, seq, backwards, shape):
+        return entry("LSTM", {
+            **base(lname), "return_sequences": seq, "return_state": False,
+            "go_backwards": backwards, "stateful": False, "unroll": False,
+            "zero_output_for_mask": seq, "units": u, "activation": "tanh",
+            "recurrent_activation": "sigmoid", "use_bias": True,
+            "kernel_initializer": initializer("GlorotUniform",
+                                              {"seed": None}),
+            "recurrent_initializer": initializer("Orthogonal",
+                                                 {"seed": None, "gain": 1.0}),
+            "bias_initializer": initializer("Zeros"),
+            "unit_forget_bias": True, "kernel_regularizer": None,
+            "recurrent_regularizer": None, "bias_regularizer": None,
+            "activity_regularizer": None, "kernel_constraint": None,
+            "recurrent_constraint": None, "bias_constraint": None,
+            "dropout": 0.0, "recurrent_dropout": 0.2, "seed": None}, shape)
+
+    def bilstm(lname, suffix, seq, shape):
+        return entry("Bidirectional", {
+            **base(lname), "merge_mode": "concat",
+            "layer": lstm(f"forward_lstm{suffix}", seq, False, shape),
+            "backward_layer": lstm(f"backward_lstm{suffix}", seq, True,
+                                   shape)}, shape)
+
+    def dropout(lname):
+        return entry("Dropout", {**base(lname), "rate": 0.2, "seed": None,
+                                 "noise_shape": None})
+
+    def act(lname):
+        return entry("Activation", {**base(lname), "activation": "elu"})
+
+    def dense(lname, units, activation, bias, kinit, dim):
+        return entry("Dense", {
+            **base(lname), "units": units, "activation": activation,
+            "use_bias": bias, "kernel_initializer": kinit,
+            "bias_initializer": initializer("Zeros"),
+            "kernel_regularizer": None, "bias_regularizer": None,
+            "kernel_constraint": None, "bias_constraint": None,
+            "quantization_config": None}, [None, dim])
+
+    he = initializer("HeNormal", {"seed": None})
+    layers = [
+        entry("InputLayer", {"batch_shape": [None, w, f], "dtype": "float32",
+                             "sparse": False, "ragged": False,
+                             "name": "input_layer", "optional": False}),
+        entry("Masking", {**base("masking"), "mask_value": 0.0}),
+        bn("batch_normalization", [w, f]),
+        bilstm("bidirectional", "", True, [None, w, f]),
+        dropout("dropout"),
+        bilstm("bidirectional_1", "_1", False, [None, w, 2 * u]),
+        act("activation"),
+        dense("dense", d, "linear", False, he, 2 * u),
+        bn("batch_normalization_1", [d]),
+        dropout("dropout_1"),
+        act("activation_1"),
+        dense("dense_1", d, "linear", False, he, d),
+        bn("batch_normalization_2", [d]),
+        act("activation_2"),
+        dropout("dropout_2"),
+        dense("dense_2", cfg.n_classes, "softmax", True,
+              initializer("GlorotUniform", {"seed": None}), d),
+    ]
+    return {"module": "keras", "class_name": "Sequential",
+            "config": {"name": name, "trainable": True, "dtype": DTYPE,
+                       "layers": layers, "build_input_shape": [None, w, f]},
+            "registered_name": None,
+            "build_config": {"input_shape": [None, w, f]},
+            "compile_config": {}}
+
+
+def save_keras_head(group, params: Params, name: str = "islx_head") -> None:
+    """The head's weights as keras 3 saves a Sequential's under ``group``
+    (``layers/<class>[_n]/vars``, a Bidirectional's in its
+    ``forward_layer/cell`` and ``backward_layer/cell``): the counterpart
+    of ``build_keras_head(...).set_weights(to_keras_weights(params))``."""
+    lists = iter(to_keras_weights(params))
+    lg = group.create_group("layers")
+
+    def put(g, lname, ws=()):
+        v = g.create_group("vars")
+        v.attrs["name"] = lname
+        for i, a in enumerate(ws):
+            v.create_dataset(str(i), data=np.asarray(a, np.float32))
+
+    for path, lname in (
+            ("masking", None), ("batch_normalization", "w"),
+            ("bidirectional", ""), ("dropout", None),
+            ("bidirectional_1", "_1"), ("activation", None),
+            ("dense", "w"), ("batch_normalization_1", "w"),
+            ("dropout_1", None), ("activation_1", None), ("dense_1", "w"),
+            ("batch_normalization_2", "w"), ("activation_2", None),
+            ("dropout_2", None), ("dense_2", "w")):
+        g = lg.create_group(path)
+        if path.startswith("bidirectional"):
+            ws = next(lists)
+            for side, part in (("forward", ws[:3]), ("backward", ws[3:])):
+                sg = g.create_group(f"{side}_layer")
+                put(sg.create_group("cell"), "lstm_cell", part)
+                put(sg, f"{side}_lstm{lname}")
+            put(g, path)
+        else:
+            put(g, path, next(lists) if lname == "w" else ())
+    group.create_group("vars").attrs["name"] = name
+
+
+def export_keras_head(params: Params, path: str,
+                      cfg: Optional[TranslatorConfig] = None) -> None:
+    """The head as a ``.keras`` file that stock keras, islx's and the
+    port's :func:`load_keras` read (h5py, no keras)."""
+    from islx_torch.models.keras_export import write_keras
+
+    if not path.endswith(".keras"):
+        raise ValueError(f"{path}: the port writes .keras archives only")
+    write_keras(path, keras_head_entry(cfg),
+                lambda f: save_keras_head(f, params))
 
 
 def load_keras(path: str) -> Params:

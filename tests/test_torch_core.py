@@ -106,8 +106,8 @@ def test_weights_roundtrip(model_type, tmp_path):
         for name in state:
             for k in state[name]:
                 assert torch.equal(state[name][k], other[name][k])
-    with pytest.raises(ValueError):
-        W.load(str(tmp_path / "w.caffemodel"), model_type)
+    with pytest.raises(ValueError, match="unsupported"):
+        W.load(str(tmp_path / "w.prototxt"), model_type)
 
 
 def test_init_params_seeded():
@@ -124,13 +124,14 @@ def test_init_params_seeded():
     assert abs(std - np.sqrt(2.0 / (9 * 256))) < 0.1 * std
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|islx)\b(?!_torch)"
-                        r"|from\s+(jax|islx)(\.|\s)(?!.*islx_torch))",
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|islx|keras)\b(?!_torch)"
+                        r"|from\s+(jax|islx|keras)(\.|\s)(?!.*islx_torch))",
                         re.MULTILINE)
 
 
 def test_port_imports_no_jax_or_islx():
-    """No file of islx_torch, nor chip_smoke.py, imports jax or islx."""
+    """No file of islx_torch, nor chip_smoke.py, imports jax, keras or
+    islx."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "islx_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -144,7 +145,8 @@ def test_port_imports_no_jax_or_islx():
     assert not bad, bad
     # the pattern itself catches what it must
     for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
-                 "from islx.ops import paf", "import islx"):
+                 "from islx.ops import paf", "import islx", "import keras",
+                 "from keras.layers import Dense"):
         assert _FORBIDDEN.search(line), line
     for line in ("import islx_torch", "from islx_torch.ops import paf"):
         assert not _FORBIDDEN.search(line), line
@@ -171,12 +173,18 @@ def test_port_modules_import_no_jax_or_islx():
             "islx_torch.cli.pose_train", "islx_torch.pipeline.image",
             "islx_torch.cli.camera", "islx_torch.cli.demo",
             "islx_torch.cli.dump_features",
-            "islx_torch.cli.demo_video"} <= set(names)
+            "islx_torch.cli.demo_video", "islx_torch.core.caffe_reader",
+            "islx_torch.core.caffe_net", "islx_torch.cli.convert",
+            "islx_torch.cli.quantize", "islx_torch.cli.summary",
+            "islx_torch.utils.summary", "islx_torch.utils.profiling",
+            "islx_torch.models.keras_export",
+            "islx_torch.models.one_model"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {sorted(names)!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'islx' "
-            "or m.startswith('islx.'))))")
+            "or m.startswith('islx.') or m == 'keras' "
+            "or m.startswith('keras.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})

@@ -117,9 +117,10 @@ def _record_steps(cls, monkeypatch):
     return steps
 
 
-def _planes(buf, b):
-    """The bits16 buffer's planes by name (islx_torch.pipeline.batch_pose)."""
-    c, k, l, m = 25, 8, 24, 48
+def _planes(buf, b, c=25, l=24):
+    """The bits16 buffer's planes by name (islx_torch.pipeline.batch_pose):
+    ``c`` joints and ``l`` limbs (BODY_25's by default; COCO's 18, 19)."""
+    k, m = 8, 48
     sizes = [b * c * k, b * c * k // 2, b * c, b * l * m // 4,
              b * l * m // 2, b * 2 * 4, b * 2 * 21, b * 2]
     names = ["xy", "score", "count", "pair", "cscore", "boxes", "hand_xy",
@@ -127,7 +128,7 @@ def _planes(buf, b):
     return dict(zip(names, np.split(buf, np.cumsum(sizes)[:-1])))
 
 
-def _same_steps(got, want, b):
+def _same_steps(got, want, b, c=25, l=24):
     """Step by step: the same frames, integer planes word-equal, the f16
     score words within one f16 rounding."""
     assert len(got) == len(want) > 0
@@ -135,7 +136,7 @@ def _same_steps(got, want, b):
         np.testing.assert_array_equal(gf, wf)
         assert gbuf.dtype == wbuf.dtype == np.int32
         assert gbuf.shape == wbuf.shape
-        gp, wp = _planes(gbuf, b), _planes(wbuf, b)
+        gp, wp = _planes(gbuf, b, c, l), _planes(wbuf, b, c, l)
         for name, wpl in wp.items():
             if name in ("score", "cscore"):
                 ws = TBP._unpackf16x2(wpl)
@@ -436,6 +437,87 @@ def test_served_results_equal_islx(monkeypatch, params):
     _same_results(got, want)
     assert sum(len(r.candidate) for r in got) > 20
     assert sum(len(r.hands) for r in got) >= 2
+
+
+@pytest.fixture(scope="module")
+def coco_params():
+    """islx's full-width COCO params (the arm joints' final heat raised by
+    1, as tests/test_torch_coco.py), islx's hand params and a thre1 at the
+    90th percentile of the frames' COCO joint heatmaps."""
+    body = jax.tree.map(np.asarray,
+                        JC.init_params("coco", jax.random.PRNGKey(11)))
+    hand = jax.tree.map(np.asarray,
+                        JC.init_params("hand", jax.random.PRNGKey(2)))
+    b = np.array(body["Mconv7_stage6_L2"]["b"])
+    b[2:8] += 1.0
+    body["Mconv7_stage6_L2"]["b"] = b
+    net = W.build("coco", W.from_islx_params(body), "cpu", torch.float32)
+    x = np.stack(_frames(0, [(48, 48)] * 4))
+    with torch.no_grad():
+        heat = net(torch.from_numpy(x).float() / 256.0 - 0.5)[1]
+    pose = dict(model_type="coco", max_peaks=8, thre2=-0.5,
+                thre1=float(np.quantile(heat[..., :18].numpy(), 0.9)))
+    return body, hand, pose
+
+
+def test_served_coco_burst_equals_direct_steps(monkeypatch, coco_params):
+    """A burst of four COCO frames served in one B=4 step equals a direct
+    ``FusedPosePipeline(..., "coco")`` step on the same frames word for
+    word, and islx's COCO step on its integer planes (scores within one
+    f16 rounding)."""
+    monkeypatch.setenv("ISLX_PALLAS_MASK", "1")
+    monkeypatch.delenv("ISLX_PALLAS_NMS", raising=False)
+    body, hand, pose = coco_params
+    tp = TBP.FusedPosePipeline(W.from_islx_params(body),
+                               W.from_islx_params(hand), "coco",
+                               pose_cfg=PoseConfig(**pose),
+                               hand_cfg=HandConfig(**HAND),
+                               compute_dtype=torch.float32, device="cpu")
+    jp = JBP.FusedPosePipeline(body, hand, "coco", pose_cfg=JPose(**pose),
+                               hand_cfg=JHand(**HAND),
+                               compute_dtype=jnp.float32)
+    frames = _frames(12, [(96, 96)] * 4)
+    calls = []
+    real = TBP.FusedPosePipeline.device_step
+
+    def recording(self, frames, orig_hw=None, thre1=None):
+        out = real(self, frames, orig_hw, thre1)
+        calls.append((frames.copy(), orig_hw, thre1, out.numpy()))
+        return out
+
+    monkeypatch.setattr(TBP.FusedPosePipeline, "device_step", recording)
+    got = _serve(MicroBatcher(tp, max_batch=4, max_wait_ms=2000.0,
+                              target_h=48), frames)
+    monkeypatch.setattr(TBP.FusedPosePipeline, "device_step", real)
+    assert len(calls) == 1 and calls[0][0].shape == (4, 48, 48, 3)
+    bucketed, orig_hw, thre1, served = calls[0]
+    direct = tp.device_step(bucketed, orig_hw, thre1).numpy()
+    np.testing.assert_array_equal(served, direct)
+    tsteps = [(bucketed, served)]
+    want = [(bucketed, np.asarray(jp.device_step(bucketed, orig_hw, thre1)))]
+    _same_steps(tsteps, want, 4, c=18, l=19)
+    assert sum(len(r.candidate) for r in got) > 10
+    assert all(r.candidate.shape[1] == 4 for r in got)
+
+
+def test_cli_serves_coco(monkeypatch):
+    """``--model-type coco`` parses and builds a COCO fused pipeline."""
+    from islx_torch.cli import serve as cli
+
+    monkeypatch.delenv("ISLX_INT8", raising=False)
+    seen = {}
+
+    def interrupt(self):
+        seen["pipe"] = self.batcher.pipe
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(PoseServer, "serve_forever", interrupt)
+    monkeypatch.setattr(PoseServer, "close", lambda self: None)
+    cli.main(["--port", "0", "--device", "cpu", "--model-type", "coco"])
+    pipe = seen["pipe"]
+    assert pipe.model_type == "coco"
+    assert pipe.body.cfg.njoint == 19
+    assert pipe.body.limb_seq.shape[0] == 19
 
 
 def test_cli_gate(monkeypatch, tmp_path):

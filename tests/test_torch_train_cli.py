@@ -204,6 +204,73 @@ def test_translate_cli_bundle(tmp_path, monkeypatch):
                           head["bn0"]["gamma"])
 
 
+def test_train_cli_keras_bundle_is_translated(features, tmp_path,
+                                              monkeypatch):
+    """--keras-bundle writes a one-model .keras of the given body and hand
+    weights and the trained head, which islx's importer reads equal; the
+    translate CLI's --bundle X.keras hands the same body, hand and head to
+    the per-frame path."""
+    keras = pytest.importorskip("keras")  # noqa: F841
+    from islx.models import one_model as JOM
+    from islx_torch.isl import translator as TI
+    from islx_torch.pipeline import video as V
+
+    root, labels, _ = features
+    body, hand = W.init_params("body25", 4), W.init_params("hand", 5)
+    W.save_npz(str(tmp_path / "b.npz"), body)
+    W.save_npz(str(tmp_path / "h.npz"), hand)
+    out, one = str(tmp_path / "head.npz"), str(tmp_path / "one.keras")
+    TCLI.main([root, "--labels", labels, "--out", out, "--epochs", "1",
+               "--batch", "4", "--keras-bundle", one, "--body-weights",
+               str(tmp_path / "b.npz"), "--hand-weights",
+               str(tmp_path / "h.npz"), "--device", "cpu"])
+    head = T.load_npz(out)
+    jb, jh, jhd = JOM.import_one_model(one)
+    for got, want in ((jb, body), (jh, hand)):
+        assert set(got) == set(want)
+        for n in want:
+            for k in want[n]:
+                np.testing.assert_array_equal(np.asarray(got[n][k]),
+                                              W.to_islx_params(want)[n][k])
+    for n in head:
+        for k in head[n]:
+            np.testing.assert_array_equal(np.asarray(jhd[n][k]), head[n][k])
+
+    seen = {}
+
+    class Recorder:
+        def __init__(self, *args, **kwargs):
+            seen.setdefault(type(self).__name__, []).append((args, kwargs))
+
+        def translate_video_frames(self, src):
+            return iter(())
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    for mod, name in ((TI, "ISLTranslator"), (V, "FrameSource")):
+        monkeypatch.setattr(mod, name, type(name, (Recorder,), {}))
+    import islx_torch.pose.body as PB
+    import islx_torch.pose.hand as PH
+    monkeypatch.setattr(PB, "Body", type("Body", (Recorder,), {}))
+    monkeypatch.setattr(PH, "Hand", type("Hand", (Recorder,), {}))
+    clip = tmp_path / "clip.mp4"
+    clip.write_bytes(b"")
+    TRCLI.main([str(clip), "--bundle", one, "--device", "cpu"])
+    (b_args, _), = seen["Body"]
+    (h_args, _), = seen["Hand"]
+    (t_args, _), = seen["ISLTranslator"]
+    assert b_args[1] == "body25"
+    for got, want in ((b_args[0], body), (h_args[0], hand)):
+        assert all(torch.equal(got[n][k], want[n][k]) for n in want
+                   for k in want[n])
+    assert all(np.array_equal(t_args[2][n][k], head[n][k]) for n in head
+               for k in head[n])
+
+
 @pytest.fixture(scope="module")
 def hand_samples(tmp_path_factory):
     """Four 24x24 hand samples (no resize at --size 24) and one 30x40
@@ -272,12 +339,10 @@ def test_pose_train_cli_matches_islx_from_one_init(hand_samples, tmp_path):
 
 
 @pytest.mark.parametrize("main,argv,item", [
-    (TCLI.main, ["--keras-bundle", "one.keras"], "item 7"),
     (TCLI.main, ["--mesh-data", "2"], "item 8"),
     (TCLI.main, ["--mesh-model", "2"], "item 8"),
     (PCLI.main, ["--pipeline", "2"], "item 8"),
     (PCLI.main, ["--mesh-data", "2"], "item 8"),
-    (PCLI.main, ["--init", "pose.caffemodel"], "item 5"),
 ])
 def test_unported_flags_name_their_roadmap_item(main, argv, item, capsys):
     base = (["root", "--labels", "l.csv", "--out", "h.npz"]

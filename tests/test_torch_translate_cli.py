@@ -139,7 +139,7 @@ def env(tmp_path_factory):
     mp.setattr(TPipe, "BatchedTranslatePipeline", functools.partial(
         TPipe.BatchedTranslatePipeline, pose_cfg=PoseConfig(**pose),
         compute_dtype=torch.float32, cfg=TTrCfg(window_size=WINDOW)))
-    yield dict(paths=paths, clip=clip, head=head)
+    yield dict(paths=paths, clip=clip, head=head, state=state)
     mp.undo()
 
 
@@ -270,9 +270,25 @@ def test_cli_batched_lines_equal(env, monkeypatch):
     people_and_hands(feats)
 
 
+def test_cli_keras_bundle_lines_equal_npz(env, tmp_path):
+    """--bundle X.keras (a one-model artifact of the same nets and head)
+    prints the lines that the same weights and the head as .npz print."""
+    from islx_torch.models import one_model as OM
+
+    p = env["paths"]
+    one = str(tmp_path / "one.keras")
+    OM.export_one_model(env["state"]["body25"], env["state"]["hand"],
+                        TT.load_npz(p["head.npz"]), one)
+    want = run(TCLI.main, [env["clip"], "--body-weights", p["body.npz"],
+                           "--hand-weights", p["hand.npz"], "--head",
+                           p["head.npz"], "--device", "cpu"])
+    got = run(TCLI.main, [env["clip"], "--bundle", one, "--device", "cpu"])
+    assert [g.split()[0] for g in got] == [str(WINDOW - 1), str(WINDOW)]
+    assert got == want
+
+
 def test_cli_rejects_unported_flags(env, capsys):
-    for flag, value, item in (("--bundle", "one.keras", "item 7"),
-                              ("--mesh-data", "2", "item 8")):
+    for flag, value, item in (("--mesh-data", "2", "item 8"),):
         with pytest.raises(SystemExit):
             TCLI.main([env["clip"], flag, value, "--device", "cpu"])
         assert item in capsys.readouterr().err
