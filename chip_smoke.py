@@ -130,6 +130,33 @@ Phases (any failure exits non-zero and the last line is never printed):
    frames served word-equal to a direct step; nms_mask_rows, conv_q and
    quantize must have launched and no other kernel. The .keras writers
    are not run here: this machine has no h5py or keras;
+6d. multi-device (islx_torch.parallel), the launch counters set to 0 at
+   its start: ``torch.cuda.device_count()`` and the devices of every mesh
+   (with one card every shard shares cuda:0: no copies between cards, no
+   NCCL across cards); over a data mesh of 2 (a copy of each net a data
+   row): the fused-184s6 bf16 step and the int8 fused-160s5 step at
+   B=192, full width, on phase 6b's weights and threshold rule so that
+   hand boxes form on every shard, their integer planes equal to the
+   unsharded step's on each shard's frames (the words apart from the
+   unsharded whole-batch step recorded), one step with every shard's NMS
+   mask call and, under int8, every conv_q and quantize call held against
+   its plain version, ms/step and frames/s in turns with the unsharded
+   step; a burst of 8 frames served on the data mesh equal to direct
+   steps; the multi-scale hand pipeline (cc peaks, every shard's
+   cc_label call held bit-equal) and ``from_frames`` with boxes naming
+   the other shard's frames, equal to the unsharded pipeline on each
+   shard's crops and boxes; a BODY_25 f32 train step (gradients and
+   Adam's first moments within 1e-3 of the unsharded step's); the
+   spatial BODY_25 forward at 368x656 over two width stripes (f32
+   without TF32 within 1e-4 of the single forward's largest output; bf16
+   timed beside the single forward); PipelinedCPM on BODY_25 over 3
+   segments at batch 4, 184x184, forward and f32 gradients (forward and
+   backward without TF32) against the unsharded net, the forwards timed;
+   one tensor-parallel head step on a (2, 2) mesh against the unsharded
+   step (loss, weights, first moments); init_distributed in a world of
+   the card count (NCCL, a worker process a further card); nms_mask_rows,
+   conv_q, quantize and label_components must have launched and no other
+   kernel;
 7. device ms per launch (torch.profiler), after the timed phases, so
    that no profiler runs before them: the labelling kernel's launches, and
    the PAF kernel at phase 3's shape (inputs warm in L2, and L2 flushed
@@ -152,7 +179,8 @@ line.
     python3 chip_smoke.py --kernels
 
 runs phases 1-3 and 7 only and prints their numbers as one JSON line;
-``--single`` runs phases 1-2 and 6b only, ``--tools`` phases 1-2 and 6c.
+``--single`` runs phases 1-2 and 6b only, ``--tools`` phases 1-2 and 6c,
+``--mesh`` phases 1-2 and 6d.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -3902,6 +3930,578 @@ def tools(hand_cfg, hand_160) -> dict:
     return res
 
 
+def mesh_devices(n: int) -> list:
+    """``n`` devices for a mesh: distinct cards where there are as many,
+    else ``cuda:0`` again (the shards then share one card)."""
+    count = torch.cuda.device_count()
+    if count >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def describe_mesh(mesh) -> str:
+    return (f"{mesh.shape} on "
+            f"{[[str(d) for d in row] for row in mesh.devices]}")
+
+
+def host_step_ms(fn, reps: int = 3) -> list:
+    """Host ms of each of ``reps`` calls of ``fn`` that end in a copy to
+    the host (the step's wall)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def planes_apart(got: dict, want: dict) -> dict:
+    """Integer plane -> how many of its words differ."""
+    return {k: int((got[k] != want[k]).sum()) for k in want
+            if not np.array_equal(got[k], want[k])}
+
+
+def mesh_fused_leg(name, hand_cfg, mesh, int8=False, b=192,
+                   orig_hw=(512, 384)) -> dict:
+    """The fused step at full width on ``mesh`` (data over its shards), on
+    phase 6b's weights (si_weights; under int8 quantized by quantize_on on
+    the batch's first 8 frames) and its threshold rule (calibrate_people on
+    those 8 frames), so that people and hand boxes form across the batch:
+    a shard's hand half then crops and reads real boxes. Its integer
+    planes must equal those of the unsharded step run on each shard's
+    frames (the same work at the shard's batch) on the same weights and
+    thresholds; how many words differ from the unsharded step at the whole
+    batch is recorded: a conv library may pick another algorithm at
+    another batch, whose bf16 words differ, and the unsharded step at the
+    shard's batch differs from it in just those words. One step with every
+    shard's NMS mask call (and, under int8, every conv_q and quantize
+    call) held against its plain version; ms/step in turns with the
+    unsharded step at the whole batch on the same card."""
+    from islx_torch.ops.yuv import frame_bytes, yuv420_to_bgr
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline, bucket_for
+
+    n = mesh.shape["data"]
+    per = b // n
+    hb, wb = bucket_for(*orig_hw)
+    host = seeded_i420(np.random.RandomState(0), b, hb, wb)
+    rows = host.reshape(b, -1)
+    with uncounted():
+        first8 = yuv420_to_bgr(torch.from_numpy(
+            host[:8 * frame_bytes(hb, wb)]).cuda(), 8, hb, wb).to(
+                torch.uint8).cpu().numpy()
+        bp, _, hp = si_weights()
+        if int8:
+            bp, hp = quantize_on(bp, hp, list(first8), hand_cfg, "cuda")
+        one = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                                compute_dtype=torch.bfloat16, device="cuda")
+        thre1 = calibrate_people(
+            one, first8, heat_quantile(one.body, first8, 26, 0.99),
+            f"mesh {name}", tries=24)
+
+        def run(p, frames, k):
+            return p.device_step_flat(p.upload_frames(frames), k, hb, wb,
+                                      orig_hw, thre1,
+                                      input_format="yuv420").cpu().numpy()
+
+        run(one, rows, b)                                   # warm-up
+        whole = integer_planes(one, run(one, rows, b), b)
+        parts = []
+        for i in range(n):
+            pl = integer_planes(one, run(one, rows[i * per:(i + 1) * per],
+                                         per), per)
+            pl["boxes"][:, 0] += i * per
+            parts.append(pl)
+        halves = {k: np.concatenate([p[k] for p in parts]) for k in whole}
+    pipe = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, mesh=mesh)
+    pipe.body.cfg = one.body.cfg
+
+    def step(p):
+        return run(p, rows, b)
+
+    packed = step(pipe)                                     # warm-up
+    got = integer_planes(pipe, packed, b)
+    diff = planes_apart(got, halves)
+    if diff:
+        raise SystemExit(f"mesh {name}: integer words {diff} differ from "
+                         f"the unsharded step's on each shard's frames")
+    boxes = got["boxes"][:, 3] > 0
+    shards_with_hands = sorted({int(f) // per
+                                for f in got["boxes"][boxes, 0]})
+    if len(shards_with_hands) < n:
+        raise SystemExit(f"mesh {name}: hand boxes formed on shards "
+                         f"{shards_with_hands} of {n}")
+    apart = planes_apart(got, whole)
+    with watched_nms() as nms, (watched_convs() if int8
+                                else contextlib.nullcontext()) as convs:
+        step(pipe)
+    convs_a_step = 114 + 17 + 7 * (hand_cfg.stages - 1)
+    quants_a_step = 103 + 2 + (hand_cfg.stages - 1)
+    if nms["calls"] != n or (int8 and (convs["convs"], convs["quantizes"])
+                             != (n * convs_a_step, n * quants_a_step)):
+        raise SystemExit(f"mesh {name}: {nms['calls']} NMS calls checked"
+                         + (f", {convs['convs']} conv_q and "
+                            f"{convs['quantizes']} quantize" if int8 else "")
+                         + f" for {n} shards")
+    sharded_ms, single_ms = [], []
+    for _ in range(2):                    # in turns: one, mesh, mesh, one
+        with uncounted():
+            single_ms += host_step_ms(lambda: step(one), 2)
+        sharded_ms += host_step_ms(lambda: step(pipe), 2)
+    res = {"leg": name, "batch": b, "bucket": [hb, wb], "thre1": thre1,
+           "shards": n, "integer_planes_equal_per_shard_batch": True,
+           "words_apart_from_whole_batch": apart,
+           "nms_checked": nms["calls"], "nms_shapes": nms["shapes"],
+           "conv_q_checked": convs["convs"] if int8 else 0,
+           "quantize_checked": convs["quantizes"] if int8 else 0,
+           "ms_per_step": sharded_ms, "unsharded_ms_per_step": single_ms,
+           "frames_per_s": [b / (ms / 1e3) for ms in sharded_ms],
+           "unsharded_frames_per_s": [b / (ms / 1e3) for ms in single_ms],
+           "hand_boxes": int(boxes.sum()),
+           "hand_parts": int((got["hand_peaks"] != 0).any(-1).sum())}
+    log(f"  mesh {name} B={b} over {n} shards: integer planes == the "
+        f"unsharded step's on each shard's {per} frames, "
+        f"{res['hand_boxes']} hand boxes on every shard, "
+        f"{res['hand_parts']} hand parts; words apart from the unsharded "
+        f"B={b} step {apart}; NMS mask held on {nms['calls']} shards"
+        + (f", {convs['convs']} conv_q + {convs['quantizes']} quantize "
+           f"calls word-equal" if int8 else "")
+        + f"; {min(sharded_ms):.1f}-{max(sharded_ms):.1f} ms/step against "
+          f"{min(single_ms):.1f}-{max(single_ms):.1f} unsharded")
+    return res
+
+
+def mesh_hand_leg(hand_cfg, mesh) -> dict:
+    """BatchedHandPipeline on the data mesh, phase 6b's hand weights: (a)
+    4 crops of 368 px at scales 0.5-2.0 with peak mode cc, every shard's
+    cc_label call held bit for bit against its plain version; (b)
+    ``from_frames`` on 8 frames of the 184x144 bucket uploaded a shard
+    each, its 16 boxes naming frames that the other shard holds. The
+    peaks must equal the unsharded pipeline's run on each shard's crops
+    (boxes, over all 8 frames): the same work at the shard's batch, as
+    mesh_fused_leg holds; how many differ from the unsharded call on the
+    whole batch is recorded (bf16 convs at another batch)."""
+    from islx_torch.core.config import HandConfig
+    from islx_torch.parallel import mesh as M
+    from islx_torch.pipeline.batch_pose import BatchedHandPipeline
+
+    n = mesh.shape["data"]
+    _, _, hp = si_weights()
+    rng = np.random.RandomState(43)
+    crops = bgr_frames(rng, 4, 368, 368)
+    kw = dict(crop_size=368, peak_mode="cc")
+    sharded = BatchedHandPipeline(hp, HandConfig(), mesh=mesh, **kw)
+    per_crops = len(crops) // n
+    with uncounted():
+        one_cc = BatchedHandPipeline(hp, HandConfig(), device="cuda", **kw)
+        want = np.concatenate([one_cc(crops[i:i + per_crops]) for i in
+                               range(0, len(crops), per_crops)])
+        whole = one_cc(crops)
+    with watched_parity("mesh hand") as par:
+        got = sharded(crops)
+    if par["label_components"] != n or not np.array_equal(got, want):
+        raise SystemExit(f"mesh hand: {par['label_components']} labelling "
+                         f"calls for {n} shards, or peaks unlike the "
+                         f"unsharded pipeline's")
+    hb, wb = SERVE_BUCKETS[0]
+    frames = bgr_frames(rng, 8, hb, wb)
+    nb = 16
+    boxes = np.zeros((nb, 4), np.int32)
+    boxes[:, 0] = (np.arange(nb) // 2 + 5) % 8
+    boxes[:, 3] = rng.randint(48, 96, nb)
+    boxes[:, 1] = [rng.randint(0, wb - w) for w in boxes[:, 3]]
+    boxes[:, 2] = [rng.randint(0, hb - w) for w in boxes[:, 3]]
+    per = nb // n
+    foreign = int(sum(f // (8 // n) != i // per
+                      for i, f in enumerate(boxes[:, 0])))
+    ff = BatchedHandPipeline(hp, hand_cfg, mesh=mesh)
+    flat = M.batch_sharding(mesh).put_flat(
+        torch.from_numpy(frames.reshape(-1)), 8)
+    if len(flat) != n:
+        raise SystemExit(f"mesh hand: {len(flat)} frame shards for {n}")
+    got_ff = ff.from_frames(flat, 8, hb, wb, boxes)
+    with uncounted():
+        one = BatchedHandPipeline(hp, hand_cfg, device="cuda")
+        up = torch.from_numpy(frames.reshape(-1)).cuda()
+        want_ff = np.concatenate([one.from_frames(up, 8, hb, wb,
+                                                  boxes[i:i + per])
+                                  for i in range(0, nb, per)])
+        whole_ff = one.from_frames(up, 8, hb, wb, boxes)
+    if not np.array_equal(got_ff, want_ff):
+        raise SystemExit("mesh hand: from_frames across shards differs "
+                         "from the unsharded pipeline's")
+    res = {"crops": 4, "scales": list(HandConfig().scale_search),
+           "cc_checked": par["label_components"],
+           "parts_found": int((got != 0).any(-1).sum()),
+           "from_frames_boxes": nb, "boxes_naming_other_shards": foreign,
+           "from_frames_parts": int((got_ff != 0).any(-1).sum()),
+           "crop_parts_apart_from_whole_batch": int(
+               (got != whole).any(-1).sum()),
+           "box_parts_apart_from_whole_batch": int(
+               (got_ff != whole_ff).any(-1).sum())}
+    log(f"  hand on the mesh: cc peaks of 4 crops == unsharded on each "
+        f"shard's crops ({res['parts_found']} parts), cc_label held on "
+        f"{par['label_components']} shards; from_frames with {foreign} of "
+        f"{nb} boxes naming the other shard's frames == unsharded on each "
+        f"shard's boxes ({res['from_frames_parts']} parts); parts apart "
+        f"from the unsharded whole-batch call: crops "
+        f"{res['crop_parts_apart_from_whole_batch']}, boxes "
+        f"{res['box_parts_apart_from_whole_batch']}")
+    return res
+
+
+def mesh_serving_leg(hand_cfg, mesh) -> dict:
+    """A burst of 8 bucket-sized frames served through MicroBatcher on a
+    pipeline on ``mesh`` (``--mesh-data 2``'s; phase 6b's weights and
+    threshold rule, so people and hands form), equal to direct unsharded
+    steps on each shard's frames (mesh_fused_leg says why not the whole
+    batch's), each shard's NMS mask call bit-equal."""
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.serve import MicroBatcher
+
+    hb, wb = SERVE_BUCKETS[0]
+    bp, _, hp = si_weights()
+    pipe = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, mesh=mesh)
+    one = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                            compute_dtype=torch.bfloat16, device="cuda")
+    burst = bgr_frames(np.random.RandomState(29), 8, hb, wb)
+    with uncounted():
+        thre1 = calibrate_people(one, burst,
+                                 heat_quantile(one.body, burst, 26, 0.99),
+                                 "mesh serving", tries=24)
+        pipe.body.cfg = one.body.cfg
+        per = 8 // mesh.shape["data"]
+        direct = [one.assemble(one.device_step(
+            burst[i:i + per], (hb, wb)).cpu().numpy(), per)
+            for i in range(0, 8, per)]
+    b = MicroBatcher(pipe, max_batch=8, max_wait_ms=1000.0)
+    try:
+        with watched_nms() as nms:
+            got = serve_batch(b, burst)
+    finally:
+        b.close()
+    if (b.stats()["batches"] != 1 or nms["calls"] != mesh.shape["data"]
+            or not all(same_results(got[i * per:(i + 1) * per], *d, one)
+                       for i, d in enumerate(direct))):
+        raise SystemExit(f"mesh serving: {b.stats()['batches']} batches, "
+                         f"{nms['calls']} NMS calls, or results unlike a "
+                         f"direct step's")
+    res = {"frames": 8, "bucket": [hb, wb], "thre1": thre1,
+           "candidates": sum(len(r.candidate) for r in got),
+           "hands": sum(len(r.hands) for r in got), "equal": True,
+           "nms_checked": nms["calls"]}
+    log(f"  served burst of 8 on the mesh: equal to direct unsharded "
+        f"steps on each shard's {per} frames ({res['candidates']} "
+        f"candidates, {res['hands']} hands); "
+        f"NMS mask bit-equal on {nms['calls']} shards")
+    return res
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def mesh_spatial_leg(mesh) -> dict:
+    """The spatial BODY_25 forward at 368x656 (two stripes over
+    ``model``) against the single forward: f32 without TF32 within 1e-4
+    of the largest output; bf16 timed in turns with the single forward."""
+    from islx_torch.core import weights as W
+    from islx_torch.parallel import sharding as S
+
+    state = W.init_params("body25", 0)
+    x = torch.from_numpy(np.random.RandomState(31).rand(
+        1, 368, 656, 3).astype(np.float32) - 0.5).cuda()
+    errs = {}
+    for dt in (torch.float32,):
+        want = S.make_batched_forward("body25", None, dt)(state, x)
+        got = S.make_spatial_forward("body25", mesh, dt)(state, x)
+        errs = {k: rel_max(g, w) for k, g, w in zip(("paf", "heat"), got,
+                                                    want)}
+    if max(errs.values()) > 1e-4:
+        raise SystemExit(f"spatial forward: {errs} from the single forward")
+    single = S.make_batched_forward("body25", None, torch.bfloat16)
+    spatial = S.make_spatial_forward("body25", mesh, torch.bfloat16)
+    t_single, t_spatial = [], []
+    for _ in range(2):
+        t_single.append(cuda_ms(lambda: single(state, x), reps=3))
+        t_spatial.append(cuda_ms(lambda: spatial(state, x), reps=3))
+    res = {"shape": [1, 368, 656, 3], "rel_err_f32": errs,
+           "ms": t_spatial, "single_ms": t_single}
+    log(f"  spatial BODY_25 368x656 over {mesh.shape['model']} stripes: "
+        f"f32 within {max(errs.values()):.2e} of the single forward; bf16 "
+        f"{min(t_spatial):.2f}-{max(t_spatial):.2f} ms against "
+        f"{min(t_single):.2f}-{max(t_single):.2f}")
+    return res
+
+
+def mesh_pipeline_leg(devices) -> dict:
+    """PipelinedCPM on BODY_25 over three segments at batch 4, 184x184:
+    the forward and the f32 gradients (forward and backward without
+    TF32) against the unsharded net's; the forwards timed in turns."""
+    from islx_torch.core import weights as W
+    from islx_torch.core.runtime import true_f32
+    from islx_torch.models import cpm
+    from islx_torch.parallel.pipeline import PipelinedCPM
+
+    state = W.init_params("body25", 0)
+    rng = np.random.RandomState(37)
+    x = torch.from_numpy(rng.rand(4, 184, 184, 3).astype(np.float32)
+                         - 0.5).cuda()
+    t_paf = torch.from_numpy(rng.rand(4, 23, 23, 52).astype(np.float32)
+                             ).cuda()
+    t_heat = torch.from_numpy(rng.rand(4, 23, 23, 26).astype(np.float32)
+                              ).cuda()
+    pipe = PipelinedCPM(state, "body25", devices, torch.float32)
+    net = cpm.CPM("body25").load_params(state).cuda().trainable()
+    with torch.no_grad():
+        want = net(x, torch.float32)
+    got = pipe.forward(x, n_micro=2)
+    fwd = {k: rel_max(g, w) for k, g, w in zip(("paf", "heat"), got, want)}
+    loss, seg_grads = pipe.grads(x, (t_paf, t_heat), n_micro=2)
+    with true_f32():
+        paf, heat = net(x, torch.float32)
+        want_loss = (torch.mean((paf - t_paf) ** 2)
+                     + torch.mean((heat - t_heat) ** 2))
+        want_loss.backward()
+    grads = {n: g for seg in seg_grads for n, g in seg.items()}
+    gerr = max(rel_max(grads[n]["w"], layer.weight.grad)
+               for n, layer in net.layers.items())
+    want_loss = float(want_loss.detach())
+    lerr = abs(float(loss) - want_loss) / abs(want_loss)
+    if max(fwd.values()) > 1e-4 or gerr > 1e-3 or lerr > 1e-5:
+        raise SystemExit(f"PipelinedCPM: forward {fwd}, loss {lerr}, "
+                         f"gradients {gerr} from the unsharded net's")
+    t_pipe, t_single = [], []
+    with torch.no_grad():
+        for _ in range(2):
+            t_single.append(cuda_ms(lambda: net(x, torch.float32), reps=3))
+            t_pipe.append(cuda_ms(lambda: pipe.forward(x, n_micro=2),
+                                  reps=3))
+    res = {"segments": [s["cells"] for s in pipe.segments],
+           "devices": [str(d) for d in devices], "batch": 4,
+           "forward_rel_err": fwd, "loss_rel_err": lerr,
+           "grad_rel_err": gerr, "ms": t_pipe, "single_ms": t_single}
+    log(f"  PipelinedCPM BODY_25 over {len(devices)} segments "
+        f"{res['segments']}: forward within {max(fwd.values()):.2e}, f32 "
+        f"gradients within {gerr:.2e} of the unsharded net's; forward "
+        f"{min(t_pipe):.2f}-{max(t_pipe):.2f} ms against "
+        f"{min(t_single):.2f}-{max(t_single):.2f}")
+    return res
+
+
+def mesh_pose_train_leg(mesh) -> dict:
+    """One f32 BODY_25 training step (batch 4, 184x184, no TF32) on the
+    data mesh, a copy of the net a data row, against the unsharded step:
+    the loss, every gradient and Adam's first moment (a gradient scaled
+    by the shard count would move them, where Adam's first step of the
+    weights, about lr * sign(g), would not)."""
+    from islx_torch.core import weights as W
+    from islx_torch.models import pose_train as PT
+
+    state = W.init_params("body25", 0)
+    rng = np.random.RandomState(47)
+    x = torch.from_numpy(rng.rand(4, 184, 184, 3).astype(np.float32)
+                         - 0.5).cuda()
+    heat = torch.from_numpy(rng.rand(4, 23, 23, 26).astype(np.float32)
+                            ).cuda()
+    paf = torch.from_numpy(rng.rand(4, 23, 23, 52).astype(np.float32)
+                           ).cuda()
+    sts, steps, losses = {}, {}, {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        sts[name] = PT.init_state("body25", 1e-4, state, device="cuda")
+        steps[name] = PT.make_train_step(sts[name], "body25", torch.float32,
+                                         mesh=m)
+        losses[name] = float(steps[name](x, heat, paf)["loss"])
+    copies = len({id(r) for r in PT.MeshNet(sts["one"].net,
+                                            mesh).replicas})
+    named = {k: dict(st.net.named_parameters()) for k, st in sts.items()}
+    gerr = max(rel_max(named["mesh"][k].grad, p.grad)
+               for k, p in named["one"].items())
+    merr = max(rel_max(sts["mesh"].optimizer.state[named["mesh"][k]][
+        "exp_avg"], sts["one"].optimizer.state[p]["exp_avg"])
+        for k, p in named["one"].items())
+    lerr = abs(losses["mesh"] - losses["one"]) / abs(losses["one"])
+    if copies != mesh.shape["data"] or lerr > 1e-5 or gerr > 1e-3 \
+            or merr > 1e-3:
+        raise SystemExit(f"pose train on the mesh: {copies} net copies, "
+                         f"loss {lerr}, gradients {gerr}, first moments "
+                         f"{merr} from the unsharded step's")
+    ms = {"one": [], "mesh": []}
+    for k in ("one", "mesh", "mesh", "one"):
+        ms[k] += host_step_ms(lambda: steps[k](x, heat, paf)["loss"].item(),
+                              1)
+    res = {"batch": 4, "size": 184, "copies": copies, "loss_rel_err": lerr,
+           "grad_rel_err": gerr, "exp_avg_rel_err": merr,
+           "ms": ms["mesh"], "single_ms": ms["one"]}
+    log(f"  BODY_25 f32 train step over {copies} data rows: loss within "
+        f"{lerr:.1e}, gradients within {gerr:.1e}, first moments within "
+        f"{merr:.1e} of the unsharded step's; "
+        f"{min(ms['mesh']):.1f}-{max(ms['mesh']):.1f} ms/step against "
+        f"{min(ms['one']):.1f}-{max(ms['one']):.1f}")
+    return res
+
+
+def mesh_head_leg(mesh) -> dict:
+    """One tensor-parallel head step (batch 32, dropout on) on ``mesh``
+    against the unsharded step on the card with the same generator: the
+    loss, the weights and Adam's first moments (the gradient's scale,
+    which the weights of a first step do not show)."""
+    from islx_torch.core.config import TranslatorConfig
+    from islx_torch.isl import train as TR
+    from islx_torch.models import translator as T
+
+    rng = np.random.RandomState(41)
+    x = torch.from_numpy(rng.randn(32, 20, 156).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 167, 32)).cuda()
+    params = T.init_params(TranslatorConfig(), 0)
+    out, ms, moments = {}, {}, {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        st = TR.init_state(TranslatorConfig(), 1e-3, params, device="cuda")
+        step = TR.make_train_step(st, m)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        loss = float(step(x, y, gen)["loss"])
+        out[name] = (loss, st.head.to_params())
+        whole = TR.shard_state(st)
+        moments[name] = {n: whole.optimizer.state[p]["exp_avg"]
+                         for n, p in whole.head.named_parameters()}
+        ms[name] = host_step_ms(lambda: step(x, y, gen)["loss"].item(), 3)
+    lerr = abs(out["mesh"][0] - out["one"][0]) / abs(out["one"][0])
+    diffs = np.concatenate([
+        np.abs(out["mesh"][1][n][k] - out["one"][1][n][k]).ravel()
+        for n in params for k in params[n]])
+    merr = max(rel_max(moments["mesh"][n], w)
+               for n, w in moments["one"].items())
+    # Adam's first step is about lr * sign(g): a gradient within rounding
+    # of zero may step the other way (2 * lr), and only there
+    off = float((diffs > 1e-5).mean())
+    if lerr > 1e-5 or diffs.max() > 2 * 1e-3 + 1e-6 or off > 1e-3 \
+            or merr > 1e-4:
+        raise SystemExit(f"tensor-parallel head: loss {lerr}, weights "
+                         f"{diffs.max()} ({off:.2%} over 1e-5), first "
+                         f"moments {merr} from the unsharded step's")
+    res = {"batch": 32, "loss_rel_err": lerr,
+           "max_weight_diff": float(diffs.max()), "share_over_1e-5": off,
+           "exp_avg_rel_err": merr, "ms": ms["mesh"], "single_ms": ms["one"]}
+    log(f"  tensor-parallel head step on {mesh.shape}: loss within "
+        f"{lerr:.1e} of the unsharded step's, first moments within "
+        f"{merr:.1e}, weights within {diffs.max():.1e} ({off:.3%} over "
+        f"1e-5); {min(ms['mesh']):.1f}-{max(ms['mesh']):.1f} ms/step "
+        f"against {min(ms['one']):.1f}-{max(ms['one']):.1f}")
+    return res
+
+
+_NCCL_WORKER = r"""
+import sys
+sys.path.insert(0, {here!r})
+import torch, torch.distributed as dist
+from islx_torch.parallel import mesh as M
+M.init_distributed({coord!r}, {world}, int(sys.argv[1]))
+t = torch.ones(1, device="cuda")
+dist.all_reduce(t)
+assert float(t) == {world}, float(t)
+dist.destroy_process_group()
+"""
+
+
+def mesh_nccl_leg() -> dict:
+    """init_distributed in a world of the card count, NCCL: this process
+    is rank 0, one worker process a further card; an all_reduce of ones
+    sums to the world size."""
+    import socket
+
+    import torch.distributed as dist
+    from islx_torch.parallel import mesh as M
+
+    world = torch.cuda.device_count()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    coord = f"localhost:{s.getsockname()[1]}"
+    s.close()
+    script = _NCCL_WORKER.format(here=HERE, coord=coord, world=world)
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)],
+                              env=dict(os.environ,
+                                       CUDA_VISIBLE_DEVICES=str(r)))
+             for r in range(1, world)]
+    try:
+        t0 = time.perf_counter()
+        multi = M.init_distributed(coord, world, 0)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+        again = M.init_distributed(coord, world, 0)
+        dist.destroy_process_group()
+        for p in procs:
+            if p.wait(timeout=120) != 0:
+                raise SystemExit("init_distributed: a worker failed")
+        seconds = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if float(t) != world or backend != "nccl" or multi != (world > 1) \
+            or again != multi:
+        raise SystemExit(f"init_distributed: sum {float(t)}, backend "
+                         f"{backend}, world {world}")
+    log(f"  init_distributed: world {world} ({backend}), all_reduce of "
+        f"ones == {world}, {seconds:.1f} s")
+    return {"world": world, "backend": backend, "seconds": seconds}
+
+
+def multi_device(hand_cfg, hand_160) -> dict:
+    """Phase 6d (module doc)."""
+    from islx_torch.parallel import mesh as M
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    data = M.make_mesh(2, devices=mesh_devices(2))
+    spatial = M.make_mesh(1, 2, devices=mesh_devices(2))
+    tp = M.make_mesh(2, 2, devices=mesh_devices(4))
+    log(f"  torch.cuda.device_count() = {count}; data mesh "
+        f"{describe_mesh(data)}; spatial {describe_mesh(spatial)}; head "
+        f"{describe_mesh(tp)}; pipeline {[str(d) for d in mesh_devices(3)]}")
+    if len(data.distinct()) == 1:
+        log("  one card: every shard runs on cuda:0, one after another on "
+            "its stream. This shows the split, the placement, the gather "
+            "and each shard's kernels; it does not show copies between "
+            "cards, NCCL across cards or shards overlapping on several "
+            "cards.")
+    set_counts(dict.fromkeys(ALL_KERNELS, 0))   # the path's run starts here
+    res = {"device_count": count, "meshes": {
+        "data": describe_mesh(data), "spatial": describe_mesh(spatial),
+        "head": describe_mesh(tp),
+        "pipeline": [str(d) for d in mesh_devices(3)]}}
+    res["fused_184s6"] = mesh_fused_leg("fused-184s6 bf16", hand_cfg, data)
+    torch.cuda.empty_cache()
+    res["fused_160s5_int8"] = mesh_fused_leg("fused-160s5 int8", hand_160,
+                                             data, int8=True)
+    torch.cuda.empty_cache()
+    res["serving"] = mesh_serving_leg(hand_cfg, data)
+    res["hand"] = mesh_hand_leg(hand_cfg, data)
+    res["pose_train"] = mesh_pose_train_leg(data)
+    res["spatial"] = mesh_spatial_leg(spatial)
+    res["pipeline"] = mesh_pipeline_leg(mesh_devices(3))
+    res["head"] = mesh_head_leg(tp)
+    torch.cuda.empty_cache()
+    launches = kernel_counts()
+    res["launches"] = launches
+    path = ("nms_mask_rows", "conv_q", "quantize", "label_components")
+    if (min(launches[k] for k in path) < 1
+            or any(n for k, n in launches.items() if k not in path)):
+        raise SystemExit(f"multi-device: want {', '.join(path)} launched "
+                         f"and no other kernel: {launches}")
+    res["nccl"] = mesh_nccl_leg()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches in phase 6d: {launches}; {res['seconds']:.1f} s")
+    return res
+
+
 PARITY_STAGES = ("body_resize", "body_cpm", "body_maps", "body_peaks",
                  "paf_limbs", "grouping", "hand_resize", "hand_cpm",
                  "hand_maps", "hand_peaks")
@@ -4009,6 +4609,10 @@ def main(argv=None) -> int:
                       help="run phases 1-2 and 6c only: .caffemodel "
                            "weights, the quantize CLI, the Caffe API, "
                            "served COCO, profiling.trace")
+    mode.add_argument("--mesh", action="store_true",
+                      help="run phases 1-2 and 6d only: the multi-device "
+                           "paths (data, spatial and pipeline parallel, the "
+                           "tensor-parallel head, init_distributed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4060,6 +4664,12 @@ def main(argv=None) -> int:
         log("[6c] .caffemodel weights, the quantize CLI, the Caffe API, "
             "served COCO and profiling.trace, full width")
         return finish({"tools": tools(hand_cfg, hand_160), "card": card,
+                       "seconds": time.perf_counter() - t_start})
+    if args.mesh:
+        log("[6d] multi-device: data, spatial and pipeline parallel, the "
+            "tensor-parallel head, init_distributed")
+        return finish({"multi_device": multi_device(hand_cfg, hand_160),
+                       "card": card,
                        "seconds": time.perf_counter() - t_start})
 
     log("[3] kernels against their plain versions")
@@ -4122,7 +4732,7 @@ def main(argv=None) -> int:
 
     log("[4c] fused pose step, full width, int8 W8A8 CPMs (160 px, 5 "
         "stages), calibrated on the phase's frames")
-    step_q = fused_step(hand_160, int8=True)[0]
+    step_q, _, packed_q = fused_step(hand_160, int8=True)
     log(f"  int8 fused-160s5 {step_q['ms_per_step']:.1f} ms/step "
         f"({step_q['frames_per_s']:.1f} frames/s) against bf16 fused-160s5 "
         f"{step160['ms_per_step']:.1f} ms/step "
@@ -4184,6 +4794,10 @@ def main(argv=None) -> int:
         "COCO and profiling.trace, full width")
     tool = tools(hand_cfg, hand_160)
 
+    log("[6d] multi-device: data, spatial and pipeline parallel, the "
+        "tensor-parallel head, init_distributed")
+    mesh = multi_device(hand_cfg, hand_160)
+
     log("[7] labelling and PAF kernels, device ms per launch")
     cc_launch_split(cc_rows)
     paf_launch_split(paf_rows[0], body, frame)
@@ -4198,6 +4812,8 @@ def main(argv=None) -> int:
                 "single_image_launches": single["launches"][
                     "label_components" if name == "cc_label" else name],
                 "tools_launches": tool["launches"][
+                    "label_components" if name == "cc_label" else name],
+                "mesh_launches": mesh["launches"][
                     "label_components" if name == "cc_label" else name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
@@ -4225,7 +4841,7 @@ def main(argv=None) -> int:
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
         "training": train, "parity": parity, "single_image": single,
-        "tools": tool, "card": card,
+        "tools": tool, "multi_device": mesh, "card": card,
         "seconds": time.perf_counter() - t_start}
     return finish(kernels)
 

@@ -21,6 +21,26 @@ def gated_hand_cfg(hand_weights=None, log=None):
     return cfg
 
 
+def mesh_for(n_data: int, n_model: int, device):
+    """The mesh of a CLI's ``--mesh-data``/``--mesh-model`` flags, None at
+    ``n_data`` 0: the first ``n_data * n_model`` visible GPUs, or on the
+    CPU (``--device cpu``) that many copies of the CPU device. Fewer GPUs
+    than that exit with a message."""
+    if not n_data:
+        return None
+    import torch
+
+    from islx_torch.parallel import mesh as M
+
+    n = n_data * n_model
+    if torch.device(device).type == "cpu":
+        return M.make_mesh(n_data, n_model, [torch.device("cpu")] * n)
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"a ({n_data}, {n_model}) mesh needs {n} GPUs; "
+                         f"{torch.cuda.device_count()} visible")
+    return M.make_mesh(n_data, n_model)
+
+
 def _calib_frames(calib_clip=None, calib_image=None, n: int = 2):
     """Up to ``n`` evenly spaced BGR u8 frames from the CLI's own input (the
     head of the clip, or the still image): the activation-calibration

@@ -3,7 +3,7 @@ reference extract_features*.py).
 
     python -m islx_torch.cli.extract CSV OUT_DIR [--shard-index I
         --num-shards N] [--body-weights W] [--hand-weights W] [--sticks]
-        [--exact] [--batch 16] [--device cuda]
+        [--exact] [--batch 16] [--mesh-data N] [--device cuda]
 
 The default runs the fused pose pipeline, ``--batch`` frames a step; the
 hand config follows the per-checkpoint gate beside ``--hand-weights``, and
@@ -16,7 +16,11 @@ Shard across processes by launching one a (I, N) pair. Without
 ``--shard-index``/``--num-shards`` they are the process's
 ``torch.distributed`` rank and world size when a process group is
 initialised, else 0 and 1 (islx asks ``jax.process_index()`` and
-``jax.process_count()``). Clips are decoded with cv2.
+``jax.process_count()``), as after a launcher's
+:func:`islx_torch.parallel.mesh.init_distributed`. ``--mesh-data N`` shards
+each fused step over N devices of this process (it composes with the
+process sharding); it needs the fused path and a ``--batch`` that N
+divides. Clips are decoded with cv2.
 """
 from __future__ import annotations
 
@@ -39,15 +43,6 @@ def _first_video(csv_path: str, path_col: str):
     return None
 
 
-def _shard_defaults():
-    """(rank, world size) of an initialised process group, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -67,13 +62,18 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=16,
                    help="frames per fused step (default path)")
     p.add_argument("--mesh-data", type=int, default=0, metavar="N",
-                   help="not ported: multi-device batches wait for "
-                        "ROADMAP.md §1 item 8")
+                   help="shard each fused device step over N devices "
+                        "(data-parallel mesh; needs --batch divisible by "
+                        "N; 0 = one device); composes with --shard-index/"
+                        "--num-shards process sharding")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.mesh_data:
-        p.error("--mesh-data is not ported yet (multi-device, ROADMAP.md "
-                "§1 item 8)")
+    if args.mesh_data and args.exact:
+        p.error("--mesh-data requires the batched production path "
+                "(drop --exact)")
+    if args.mesh_data and args.batch % args.mesh_data:
+        p.error(f"--batch {args.batch} not divisible by "
+                f"--mesh-data {args.mesh_data}")
 
     from islx_torch.core import weights as W
     from islx_torch.core.runtime import resolve_device
@@ -89,7 +89,7 @@ def main(argv=None):
         pose = ISLSignPos(Body(args.body_weights, "body25", device=device),
                           Hand(args.hand_weights, device=device))
     else:
-        from islx_torch.cli import gated_hand_cfg, gated_int8_params
+        from islx_torch.cli import gated_hand_cfg, gated_int8_params, mesh_for
         from islx_torch.pipeline.batch_pose import FusedPosePipeline
 
         bp = (W.load(args.body_weights, "body25") if args.body_weights
@@ -105,9 +105,13 @@ def main(argv=None):
                 body_weights=args.body_weights, hand_cfg=hand_cfg,
                 calib_clip=_first_video(args.csv, args.path_col),
                 log=print, device=device)
-        pose = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg, device=device)
+        mesh = mesh_for(args.mesh_data, 1, device)
+        pose = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                                 device=None if mesh else device, mesh=mesh)
         batch = args.batch
-    rank, world = _shard_defaults()
+    from islx_torch.parallel.mesh import process_rank
+
+    rank, world = process_rank()
     shard_index = rank if args.shard_index is None else args.shard_index
     num_shards = world if args.num_shards is None else args.num_shards
 

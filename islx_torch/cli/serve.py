@@ -2,7 +2,8 @@
 
     python -m islx_torch.cli.serve [--host 127.0.0.1] [--port 8008]
         [--body-weights W] [--hand-weights W] [--model-type body25|coco]
-        [--max-batch 8] [--max-wait-ms 15] [--int8-after N] [--device cuda]
+        [--max-batch 8] [--max-wait-ms 15] [--int8-after N]
+        [--mesh-data N] [--device cuda]
 
     curl -s -X POST --data-binary @image.jpg localhost:8008/pose
     curl -s localhost:8008/healthz
@@ -15,6 +16,9 @@ recorded int8 GO, or ``ISLX_INT8=1`` with or without ``--hand-weights``,
 gives ``--int8-after 256`` (``ISLX_INT8=0`` keeps bf16). Decoding POST
 bodies, and resizing frames that are not at their bucket's size, needs
 cv2. Without weights the nets run the port's seeded random init.
+``--mesh-data N`` shards each served batch over N devices (a data-parallel
+mesh of the first N visible GPUs; ``--max-batch`` must divide by N); the
+int8 swap builds its pipeline on the same mesh.
 """
 from __future__ import annotations
 
@@ -63,16 +67,24 @@ def main(argv=None):
     p.add_argument("--int8-after", type=int, default=None, metavar="N",
                    help="after N served frames, calibrate on the live "
                         "traffic and swap in int8 (W8A8) CPMs")
+    p.add_argument("--mesh-data", type=int, default=0, metavar="N",
+                   help="shard each served micro-batch over N devices "
+                        "(data-parallel mesh; needs --max-batch divisible "
+                        "by N; 0 = one device)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.mesh_data and args.max_batch % args.mesh_data:
+        p.error(f"--max-batch {args.max_batch} not divisible by "
+                f"--mesh-data {args.mesh_data}")
 
-    from islx_torch.cli import gated_hand_cfg
+    from islx_torch.cli import gated_hand_cfg, mesh_for
     from islx_torch.core import weights as W
     from islx_torch.core.runtime import resolve_device
     from islx_torch.pipeline.batch_pose import FusedPosePipeline
     from islx_torch.serve import PoseServer
 
     device = resolve_device(args.device)
+    mesh = mesh_for(args.mesh_data, 1, device)
     hand_cfg = gated_hand_cfg(args.hand_weights, log=print)
     int8_after = int8_after_for(args.int8_after, args.hand_weights,
                                 log=print)
@@ -81,7 +93,8 @@ def main(argv=None):
          else W.init_params(args.model_type)),
         (W.load(args.hand_weights, "hand") if args.hand_weights
          else W.init_params("hand")),
-        args.model_type, hand_cfg=hand_cfg, device=device)
+        args.model_type, hand_cfg=hand_cfg,
+        device=None if mesh else device, mesh=mesh)
     server = PoseServer(pipe, args.host, args.port,
                         max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms,

@@ -8,7 +8,8 @@ islx/cli/train.py).
     python -m islx_torch.cli.train FEATURES_ROOT --labels LABELS.csv
            --out HEAD.npz [--epochs 20] [--batch 32] [--lr 1e-3] [--seed 0]
            [--checkpoint-dir DIR] [--bundle DIR] [--keras-bundle X.keras]
-           [--body-weights W --hand-weights W] [--device cuda]
+           [--body-weights W --hand-weights W]
+           [--mesh-data N [--mesh-model M]] [--device cuda]
 
 LABELS.csv: columns ``video_id,expression`` (an expression name from
 islx_torch.isl.expressions, any case). Training is checkpointed every
@@ -17,6 +18,9 @@ islx's format (islx's ``load_npz`` reads it). A bundle holds the body and
 hand weights given (the port's seeded init without them) and the head:
 a port bundle directory, or a one-model ``.keras`` artifact
 (:mod:`islx_torch.models.one_model`, which islx and stock keras load).
+``--mesh-data N --mesh-model M`` trains data- and tensor-parallel on an
+(N, M) mesh (:func:`islx_torch.cli.mesh_for`; islx_torch.isl.train); the
+result equals the one-device run's within float rounding.
 """
 from __future__ import annotations
 
@@ -47,17 +51,13 @@ def main(argv=None):
     p.add_argument("--model-type", default="body25",
                    choices=["body25", "coco"])
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="not ported: multi-device waits for ROADMAP.md §1 "
-                        "item 8")
+                   help="data-parallel mesh axis (0 = no mesh, one device)")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="not ported: multi-device waits for ROADMAP.md §1 "
-                        "item 8")
+                   help="tensor-parallel mesh axis for the head kernels")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.mesh_data or args.mesh_model != 1:
-        p.error("--mesh-data/--mesh-model are not ported yet (multi-device, "
-                "ROADMAP.md §1 item 8)")
 
+    from islx_torch.cli import mesh_for
     from islx_torch.core.config import TranslatorConfig
     from islx_torch.core.runtime import resolve_device
     from islx_torch.isl import dataset as D
@@ -77,9 +77,11 @@ def main(argv=None):
     print(f"{x.shape[0]} windows of [{cfg.window_size},{cfg.feature_dim}] "
           f"over {len(set(y.tolist()))} classes")
 
+    mesh = mesh_for(args.mesh_data, args.mesh_model, device)
     params = TR.fit(x, y, epochs=args.epochs, batch_size=args.batch,
                     lr=args.lr, cfg=cfg, seed=args.seed,
-                    checkpoint_dir=args.checkpoint_dir, device=device)
+                    checkpoint_dir=args.checkpoint_dir,
+                    device=None if mesh else device, mesh=mesh)
     T.save_npz(args.out, params)
     print(f"head -> {args.out}")
 

@@ -3,7 +3,8 @@
 
     python -m islx_torch.cli.translate VIDEO [--head H.keras|.h5|.npz]
         [--body-weights W] [--hand-weights W] [--bundle DIR|X.keras]
-        [--batched --batch 16] [--camera] [--min-prob P] [--device cuda]
+        [--batched --batch 16 [--mesh-data N]] [--camera] [--min-prob P]
+        [--device cuda]
 
 The default is the reference-exact per-frame path (``ISLTranslator``:
 ``Body`` + ``Hand`` on each frame, its features cached in the 20-frame
@@ -21,7 +22,9 @@ does; ``ISLX_INT8=0`` keeps bf16. Weights are islx ``.npz`` or reference
 artifact (:mod:`islx_torch.models.one_model`; ``--keras-bundle``, or
 islx's): its body, hand and head in place of the separate files. Clips
 are decoded with cv2, as is ``--camera``; ``.keras``/``.h5`` heads and
-one-models are read with h5py.
+one-models are read with h5py. ``--mesh-data N`` shards each fused step
+over N devices (:func:`islx_torch.cli.mesh_for`); it needs ``--batched``
+and a ``--batch`` that N divides.
 """
 from __future__ import annotations
 
@@ -62,13 +65,16 @@ def main(argv=None):
                         "reference-exact per-frame path")
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--mesh-data", type=int, default=0, metavar="N",
-                   help="not ported: multi-device batches wait for "
-                        "ROADMAP.md §1 item 8")
+                   help="shard each fused device step over N devices "
+                        "(data-parallel mesh); requires --batched and "
+                        "--batch divisible by N; 0 = one device")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.mesh_data:
-        p.error("--mesh-data is not ported yet (multi-device, ROADMAP.md "
-                "§1 item 8)")
+    if args.mesh_data and not args.batched:
+        p.error("--mesh-data requires --batched (the fused device pipeline)")
+    if args.mesh_data and args.batch % args.mesh_data:
+        p.error(f"--batch {args.batch} not divisible by "
+                f"--mesh-data {args.mesh_data}")
     if not args.camera:
         if args.video is None:
             p.error("VIDEO is required unless --camera is given")
@@ -99,7 +105,7 @@ def main(argv=None):
             print(f"{idx} {prob:0.4f} {cid}-{expr}")
 
     if args.batched and not args.camera:
-        from islx_torch.cli import gated_hand_cfg, gated_int8_params
+        from islx_torch.cli import gated_hand_cfg, gated_int8_params, mesh_for
         from islx_torch.pipeline.translate import BatchedTranslatePipeline
 
         bp = (body_params if body_params is not None
@@ -116,9 +122,11 @@ def main(argv=None):
                 bp, hp, hand_weights=args.hand_weights,
                 body_weights=args.body_weights, hand_cfg=hand_cfg,
                 calib_clip=args.video, log=print, device=device)
+        mesh = mesh_for(args.mesh_data, 1, device)
         pipe = BatchedTranslatePipeline(
             body_params=bp, hand_params=hp, head_params=head_params,
-            hand_cfg=hand_cfg, batch=args.batch, device=device)
+            hand_cfg=hand_cfg, batch=args.batch,
+            device=None if mesh else device, mesh=mesh)
         for pred in pipe.translate_video(args.video):
             show(*pred)
         return

@@ -29,7 +29,7 @@ the compute dtype at use. Int8 layers are inference-only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -216,6 +216,118 @@ def param_count(model_type: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Wiring: each net is a chain of cells (islx/parallel/pipeline.py's). A
+# cell is (name, the conv names it owns, fn(net, state, cd) -> state); a
+# state is a dict of NCHW activations, {"x": the input} before the first
+# cell. CPM's forwards run the chain; the pipelined CPM
+# (islx_torch/parallel/pipeline.py) cuts it into segments.
+# ---------------------------------------------------------------------------
+
+Cell = Tuple[str, List[str], Callable]
+
+
+def _names(node) -> List[str]:
+    return [c.name for c in _iter_convs(node)]
+
+
+def _b25_cells(spec) -> List[Cell]:
+    """src/model.py:179-207: four PAF stages (L2), then two heatmap
+    stages (L1)."""
+    st = spec["stages"]
+
+    def stage_names(s: int, L: str) -> List[str]:
+        return _names([st[f"Mconv{i}_stage{s}_{L}"] for i in range(1, 6)]
+                      + [st[f"Mconv6_7_stage{s}_{L}"]])
+
+    def trunk(net, state, cd):
+        out0 = net._seq(state["x"], spec["trunk"], cd)
+        return {"out0": out0, "tout": out0}
+
+    def l2(s):
+        def fn(net, state, cd):
+            paf = net._b25_stage(state["tout"], s, "L2", cd)
+            return {"out0": state["out0"], "paf": paf,
+                    "tout": net._cat([state["out0"], paf])}
+        return fn
+
+    def l1_0(net, state, cd):
+        heat0 = net._b25_stage(state["tout"], 0, "L1", cd)
+        return {"paf": state["paf"],
+                "tout": net._cat([state["out0"], heat0, state["paf"]])}
+
+    def l1_1(net, state, cd):
+        return {"paf": state["paf"],
+                "heat": net._b25_stage(state["tout"], 1, "L1", cd)}
+
+    cells: List[Cell] = [("trunk", _names(spec["trunk"]), trunk)]
+    for s in range(4):
+        cells.append((f"L2s{s}", stage_names(s, "L2"), l2(s)))
+    cells.append(("L1s0", stage_names(0, "L1"), l1_0))
+    cells.append(("L1s1", stage_names(1, "L1"), l1_1))
+    return cells
+
+
+def _coco_cells(spec) -> List[Cell]:
+    """islx/models/cpm.py:433-447: each branch of a stage is a ``_seq``
+    chain, as in islx."""
+    heads = spec["heads"]
+
+    def trunk_b1(net, state, cd):
+        out1 = net._seq(state["x"], spec["trunk"], cd)
+        return {"out1": out1,
+                "a": net._seq(out1, heads["block1_L1"], cd),
+                "b": net._seq(out1, heads["block1_L2"], cd)}
+
+    def block(i):
+        def fn(net, state, cd):
+            x2 = net._cat([state["a"], state["b"], state["out1"]])
+            return {"out1": state["out1"],
+                    "a": net._seq(x2, heads[f"block{i}_L1"], cd),
+                    "b": net._seq(x2, heads[f"block{i}_L2"], cd)}
+        return fn
+
+    cells: List[Cell] = [("trunk_b1", _names(
+        [spec["trunk"], heads["block1_L1"], heads["block1_L2"]]), trunk_b1)]
+    for i in range(2, 7):
+        cells.append((f"block{i}", _names(
+            [heads[f"block{i}_L1"], heads[f"block{i}_L2"]]), block(i)))
+    return cells
+
+
+def _hand_cells(spec) -> List[Cell]:
+    """The trunk and stage 1, then five refinement stages; every cell's
+    ``out`` is its stage's head."""
+
+    def trunk_s1(net, state, cd):
+        t = net._seq(state["x"], spec["trunk"], cd)
+        return {"trunk": t, "out": net._seq(t, spec["stage1"], cd)}
+
+    def stage(i):
+        def fn(net, state, cd):
+            x2 = net._cat([state["out"], state["trunk"]])
+            return {"trunk": state["trunk"],
+                    "out": net._seq(x2, spec["stages"][f"stage{i}"], cd)}
+        return fn
+
+    cells: List[Cell] = [("trunk_s1", _names(
+        [spec["trunk"], spec["stage1"]]), trunk_s1)]
+    for i in range(2, 7):
+        cells.append((f"stage{i}", _names(spec["stages"][f"stage{i}"]),
+                      stage(i)))
+    return cells
+
+
+_CELLS = {"body25": _b25_cells, "coco": _coco_cells, "hand": _hand_cells}
+# a net's outputs, in forward()'s order, as keys of the last cell's state
+OUT_KEYS = {"body25": ("paf", "heat"), "coco": ("a", "b"), "hand": ("out",)}
+
+
+def cells(model_type: str, spec=None) -> List[Cell]:
+    """The net's chain of cells (over ``spec``, default a fresh one)."""
+    return _CELLS[model_type](spec or SPECS[model_type]())
+
+
+# ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 
@@ -281,6 +393,7 @@ class CPM(nn.Module):
         super().__init__()
         self.model_type = model_type
         self.spec = SPECS[model_type]()
+        self.cells = cells(model_type, self.spec)
         self.layers = nn.ModuleDict(
             {c.name: ConvLayer(c) for c in conv_layers(model_type)})
 
@@ -338,6 +451,19 @@ class CPM(nn.Module):
         return any(isinstance(m, quant.QConvLayer)
                    for m in self.layers.values())
 
+    # The wiring below reaches activations only through these three
+    # (and the int8 chain of _seq); the striped net of
+    # islx_torch/parallel/sharding.py overrides them to run on width
+    # stripes.
+    def _conv(self, x, name: str, cd):
+        return self.layers[name](x, cd)
+
+    def _pool(self, x, layer: Pool):
+        return F.max_pool2d(x, layer.k, layer.s)
+
+    def _cat(self, xs):
+        return torch.cat(xs, dim=1)
+
     def _seq(self, x, layers: Sequence[Layer], cd):
         """A chain of convs and pools (islx/models/cpm.py:339-381): the
         activations stay int8 (NHWC) between consecutive quantized convs,
@@ -346,12 +472,12 @@ class CPM(nn.Module):
         while i < n:
             layer = layers[i]
             if isinstance(layer, Pool):
-                x = F.max_pool2d(x, layer.k, layer.s)
+                x = self._pool(x, layer)
                 i += 1
                 continue
             mod = self.layers[layer.name]
             if not isinstance(mod, quant.QConvLayer):
-                x = mod(x, cd)
+                x = self._conv(x, layer.name, cd)
                 i += 1
                 continue
             if x_q is None:
@@ -374,42 +500,30 @@ class CPM(nn.Module):
     def _dense_block(self, x, convs: Sequence[Conv], cd):
         outs = []
         for c in convs:
-            x = self.layers[c.name](x, cd)
+            x = self._conv(x, c.name, cd)
             outs.append(x)
-        return torch.cat(outs, dim=1)
+        return self._cat(outs)
 
     def _b25_stage(self, x, s: int, L: str, cd):
         st = self.spec["stages"]
         for i in range(1, 6):
             x = self._dense_block(x, st[f"Mconv{i}_stage{s}_{L}"], cd)
         for c in st[f"Mconv6_7_stage{s}_{L}"]:      # unchained, as in islx
-            x = self.layers[c.name](x, cd)
+            x = self._conv(x, c.name, cd)
         return x
 
-    def body25(self, x: torch.Tensor, cd) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-        """NCHW -> (paf, heat) NCHW; wiring of src/model.py:179-207."""
-        out0 = self._seq(x, self.spec["trunk"], cd)
-        tout, paf = out0, None
-        for s in range(4):
-            paf = self._b25_stage(tout, s, "L2", cd)
-            tout = torch.cat([out0, paf], dim=1)
-        heat0 = self._b25_stage(tout, 0, "L1", cd)
-        tout = torch.cat([out0, heat0, paf], dim=1)
-        return paf, self._b25_stage(tout, 1, "L1", cd)
+    def chain(self, x, cd, n: Optional[int] = None):
+        """The state after each of the first ``n`` cells (all of them by
+        default), NCHW."""
+        state = {"x": x}
+        for _, _, fn in self.cells[:n]:
+            state = fn(self, state, cd)
+            yield state
 
-    def coco(self, x: torch.Tensor, cd) -> Tuple[torch.Tensor, torch.Tensor]:
-        """NCHW -> (paf, heat) NCHW; islx/models/cpm.py:433-447 (each
-        branch of a stage is a ``_seq`` chain, as in islx)."""
-        heads = self.spec["heads"]
-        out1 = self._seq(x, self.spec["trunk"], cd)
-        a = self._seq(out1, heads["block1_L1"], cd)
-        b = self._seq(out1, heads["block1_L2"], cd)
-        for i in range(2, 7):
-            x2 = torch.cat([a, b, out1], dim=1)
-            a = self._seq(x2, heads[f"block{i}_L1"], cd)
-            b = self._seq(x2, heads[f"block{i}_L2"], cd)
-        return a, b
+    def outputs(self, x, cd) -> Tuple:
+        """NCHW -> the net's outputs, NCHW (:data:`OUT_KEYS`)."""
+        *_, state = self.chain(x, cd)
+        return tuple(state[k] for k in OUT_KEYS[self.model_type])
 
     def hand(self, x: torch.Tensor, cd, stages: int = 6) -> List[
             torch.Tensor]:
@@ -417,12 +531,7 @@ class CPM(nn.Module):
         consumes the last)."""
         if not 1 <= stages <= 6:
             raise ValueError(f"hand stages must be in [1, 6], got {stages}")
-        trunk = self._seq(x, self.spec["trunk"], cd)
-        outs = [self._seq(trunk, self.spec["stage1"], cd)]
-        for i in range(2, stages + 1):
-            outs.append(self._seq(torch.cat([outs[-1], trunk], dim=1),
-                                  self.spec["stages"][f"stage{i}"], cd))
-        return outs
+        return [state["out"] for state in self.chain(x, cd, stages)]
 
     def forward(self, x_nhwc: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32,
@@ -431,7 +540,7 @@ class CPM(nn.Module):
         x = x_nhwc.permute(0, 3, 1, 2)
         with true_f32():
             if self.model_type in ("body25", "coco"):
-                paf, heat = getattr(self, self.model_type)(x, compute_dtype)
+                paf, heat = self.outputs(x, compute_dtype)
                 return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
             return self.hand(x, compute_dtype, stages)[-1].permute(
                 0, 2, 3, 1)

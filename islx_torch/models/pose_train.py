@@ -11,9 +11,17 @@ meaning on the card (no TF32).
 
 The targets are numpy, computed on the host from keypoint annotations
 (the port's own copies of islx's functions).
+
+With a mesh (``make_train_step(..., mesh=)``) the batch is split over its
+data axis: each data row runs a replica of the net on its rows, the
+outputs are gathered on the first device and the loss, its
+``pos_weight`` and deep supervision are the global batch's, as in the
+unsharded step; the replicas' gradients are summed into the master net,
+Adam steps it, and the new weights are copied to the replicas.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -24,6 +32,7 @@ from islx_torch.core import weights as W
 from islx_torch.core.runtime import resolve_device, true_f32
 from islx_torch.models import cpm
 from islx_torch.ops.paf import LIMB_TABLES
+from islx_torch.parallel import mesh as M
 
 
 @dataclasses.dataclass
@@ -86,20 +95,79 @@ def loss_fn(net: cpm.CPM, x: torch.Tensor, heat_t: torch.Tensor,
                   "paf_loss": paf_loss.detach()}
 
 
+class MeshNet:
+    """A master net's forward with the batch over a mesh's data rows (the
+    1x1 mesh of the net's device without one): row ``i`` runs its own copy
+    (:func:`~islx_torch.parallel.mesh.replicate`; row 0's is the master),
+    and the outputs are gathered on the mesh's first device, which must
+    hold the master. :meth:`reduce` adds the other copies' gradients into
+    the master's; :meth:`broadcast` copies the master's weights to them."""
+
+    def __init__(self, net: cpm.CPM, mesh=None):
+        dev = next(net.parameters()).device
+        mesh = mesh or M.single(dev)
+        if dev != mesh.first:
+            raise ValueError(f"the master net is on {dev}, the mesh starts "
+                             f"at {mesh.first}")
+        self.net, self.mesh = net, mesh
+        self._sharding = M.batch_sharding(mesh)
+        self.replicas = M.replicate(
+            mesh, lambda d: copy.deepcopy(net).to(d), first=net)
+
+    def _rows(self, x, fn):
+        return self._sharding.gather(
+            [fn(r, xs) for r, xs in zip(self.replicas,
+                                        self._sharding.put(x))])
+
+    def __call__(self, x, compute_dtype):
+        return self._rows(x, lambda net, xs: net(xs, compute_dtype))
+
+    def hand_forward_stages(self, x, compute_dtype):
+        return self._rows(
+            x, lambda net, xs: net.hand_forward_stages(xs, compute_dtype))
+
+    def zero_grad(self) -> None:
+        for r in self.replicas[1:]:
+            r.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def reduce(self) -> None:
+        for r in self.replicas[1:]:
+            for p, q in zip(self.net.parameters(), r.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+
+    @torch.no_grad()
+    def broadcast(self) -> None:
+        for r in self.replicas[1:]:
+            for p, q in zip(self.net.parameters(), r.parameters()):
+                q.copy_(p)
+
+
 def make_train_step(state: PoseTrainState, model_type: str = "body25",
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    pos_weight: float = 0.0, deep_supervision: bool = False):
+                    pos_weight: float = 0.0, deep_supervision: bool = False,
+                    mesh=None):
     """-> step(x, heat_t, paf_t) -> metrics (tensors on the net's device),
-    updating ``state``: the gradient, then the Adam update."""
+    updating ``state``: the gradient, then the Adam update. With a
+    ``mesh`` (the net on its first device) the batch is split over its
+    data axis (:class:`MeshNet`)."""
+    net = MeshNet(state.net, mesh)
+    first = net.mesh.first
 
     def step(x, heat_t, paf_t):
         state.optimizer.zero_grad(set_to_none=True)
+        net.zero_grad()
         with true_f32():
-            loss, metrics = loss_fn(state.net, x, heat_t, paf_t, model_type,
+            loss, metrics = loss_fn(net, x, heat_t.to(first),
+                                    paf_t.to(first), model_type,
                                     compute_dtype, pos_weight,
                                     deep_supervision)
             loss.backward()
+        net.reduce()
         state.optimizer.step()
+        net.broadcast()
         state.step += 1
         return metrics
 

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from islx_torch.core.config import TranslatorConfig
+from islx_torch.parallel import mesh as M
 
 Params = Dict[str, Dict[str, np.ndarray]]
 
@@ -358,20 +359,26 @@ def load_keras(path: str) -> Params:
     return from_keras_weights(_keras_weight_lists(path))
 
 
-def _lstm(p: Mapping[str, torch.Tensor], xs: torch.Tensor,
-          mask: torch.Tensor, reverse: bool):
-    """Masked LSTM over time. xs [B,T,F], mask [B,T] bool ->
+def _lstm(parts, xs: torch.Tensor, mask: torch.Tensor, reverse: bool):
+    """Masked LSTM over time. ``parts``: the weights' gate-column parts
+    ({kernel, recurrent, bias} each) on the devices that hold them, one
+    part when the gates are not split (tensor parallelism: each part's
+    columns of the gate pre-activations are computed on its device and
+    gathered on xs's every step). xs [B,T,F], mask [B,T] bool ->
     (outputs [B,T,U], last output [B,U])."""
-    units = p["recurrent"].shape[0]
+    units = parts[0]["recurrent"].shape[0]
     b, t_len = xs.shape[0], xs.shape[1]
-    zx = torch.matmul(xs, p["kernel"]) + p["bias"]        # [B,T,4U]
+    zx = [torch.matmul(xs.to(p["kernel"].device), p["kernel"]) + p["bias"]
+          for p in parts]                                  # [B,T,4U/n]
     h = xs.new_zeros((b, units))
     c = xs.new_zeros((b, units))
     out = xs.new_zeros((b, units))
     outs = [None] * t_len
     steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
     for t in steps:
-        z = zx[:, t] + h @ p["recurrent"]
+        zs = [(z[:, t] + h.to(z.device) @ p["recurrent"]).to(xs.device)
+              for z, p in zip(zx, parts)]
+        z = zs[0] if len(zs) == 1 else torch.cat(zs, -1)
         i, f, g, o = torch.split(z, units, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
         c_new = f * c + i * torch.tanh(g)
@@ -395,25 +402,48 @@ def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, (x - mean).square().mean(axes)
 
 
-def _bn(p: Mapping[str, torch.Tensor], x: torch.Tensor, train: bool = False,
-        eps: float = 1e-3) -> torch.Tensor:
-    """keras BatchNormalization: running statistics, or in train mode the
-    batch's moments."""
-    mean, var = _moments(x) if train else (p["mean"], p["var"])
-    return (x - mean) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
+def _keep(shape, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """A dropout keep mask of ``shape``, on the generator's device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < 1.0 - rate
 
 
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator], train: bool
-             ) -> torch.Tensor:
+             generator: Optional[torch.Generator], train: bool,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout: keep with probability ``1 - rate`` and scale by
     ``1 / (1 - rate)``; the identity outside train mode, at rate 0 or
-    without a generator (islx's ``rng=None``)."""
+    without a generator (islx's ``rng=None``). ``keep``: x's slice of a
+    mask drawn for a larger batch, else one is drawn for x."""
     if not train or generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    if keep is None:
+        keep = _keep(x.shape, rate, generator)
+    return torch.where(keep.to(x.device), x / (1.0 - rate),
+                       torch.zeros_like(x))
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Every process's rows, in rank order (equal counts). The backward
+    sums the gradient of all rows over the processes, since every
+    process's loss reads every row, and keeps this process's rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x.contiguous())
+        ctx.rank, ctx.n = dist.get_rank(), x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n]
 
 
 class TranslatorHead(nn.Module):
@@ -422,74 +452,203 @@ class TranslatorHead(nn.Module):
     A timestep is masked where every feature is 0 (keras
     ``Masking(mask_value=0.)``, the zero-padded window tail). Every weight
     is a parameter (``{layer}__{name}``) but the BNs' ``mean``/``var``,
-    which are buffers."""
+    which are buffers.
+
+    ``mesh`` (:mod:`islx_torch.parallel.mesh`): islx's tensor-parallel
+    rules (:func:`~islx_torch.parallel.mesh.translator_param_spec`) and
+    data parallelism, as islx's SPMD program runs them. A weight that the
+    rules split over ``model`` is held as ``n_model`` column parts, part
+    ``j`` on device ``(0, j)`` (``{layer}__{name}__{j}``); the others, and
+    the BN statistics, on the mesh's first device. ``forward`` splits this
+    process's rows over the data axis; row ``i`` works on differentiable
+    copies of the weights on its own devices, so the gradients of all rows
+    add up in the one master copy. Each model device computes its columns
+    of the LSTM gate pre-activations and of the dense outputs, which the
+    row's first device gathers (at every timestep, for the LSTMs). In
+    train mode every BN normalizes by the moments of the global batch (of
+    every row, and of every process when a process group of more than one
+    is initialised), and dropout draws one mask over the global batch's
+    shape, so the step equals the unmeshed head's given the same
+    generator. Without a mesh the head is the one-part, one-row case on
+    the device it was moved to."""
 
     def __init__(self, params: Mapping[str, Mapping[str, np.ndarray]],
-                 cfg: TranslatorConfig = TranslatorConfig()):
+                 cfg: TranslatorConfig = TranslatorConfig(), mesh=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
+        self.rank, self.world = ((0, 1) if mesh is None
+                                 else M.process_rank())
+        n_model = 1 if mesh is None else mesh.shape[M.MODEL_AXIS]
         self._keys = {name: list(entry) for name, entry in params.items()}
+        self._split: Dict[Tuple[str, str], int] = {}   # -> split dim
         for name, entry in params.items():
             for k, v in entry.items():
                 t = torch.from_numpy(np.array(v, np.float32))
+                spec = M.translator_param_spec(name, k, t.shape, n_model)
                 if name.startswith("bn") and k in BN_KEYS:
-                    self.register_buffer(f"{name}__{k}", t)
+                    self.register_buffer(f"{name}__{k}", self._place(t))
+                elif spec:
+                    dim = spec.index(M.MODEL_AXIS)
+                    self._split[(name, k)] = dim
+                    for j, part in enumerate(t.chunk(n_model, dim)):
+                        self.register_parameter(
+                            f"{name}__{k}__{j}", nn.Parameter(
+                                self._place(part.contiguous(), j)))
                 else:
-                    self.register_parameter(f"{name}__{k}", nn.Parameter(t))
+                    self.register_parameter(f"{name}__{k}",
+                                            nn.Parameter(self._place(t)))
 
-    def _p(self, name: str) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, f"{name}__{k}") for k in self._keys[name]}
+    def _place(self, t: torch.Tensor, j: int = 0) -> torch.Tensor:
+        return t if self.mesh is None else t.to(self.mesh.devices[0, j])
 
-    def _lstms(self, h: torch.Tensor, mask: torch.Tensor, generator,
-               train: bool) -> torch.Tensor:
-        """Both BiLSTMs (and the dropout between): -> [B, 2U]."""
-        f, _ = _lstm(self._p("lstm1_fwd"), h, mask, reverse=False)
-        b, _ = _lstm(self._p("lstm1_bwd"), h, mask, reverse=True)
-        h = _dropout(torch.cat([f, b], dim=-1), self.cfg.dropout, generator,
-                     train)
-        _, f = _lstm(self._p("lstm2_fwd"), h, mask, reverse=False)
-        _, b = _lstm(self._p("lstm2_bwd"), h, mask, reverse=True)
-        return torch.cat([f, b], dim=-1)
+    def _grid(self):
+        """The mesh, or the 1x1 mesh of the device the head is on."""
+        return self.mesh or M.single(self.dense3__bias.device)
+
+    # -- parameters ------------------------------------------------------
+
+    def parts(self, name: str, k: str) -> list:
+        """The master copies of one weight: its column parts, or itself."""
+        if (name, k) in self._split:
+            n = self.mesh.shape[M.MODEL_AXIS]
+            return [getattr(self, f"{name}__{k}__{j}") for j in range(n)]
+        return [getattr(self, f"{name}__{k}")]
+
+    def split_dim(self, name: str, k: str) -> Optional[int]:
+        """The dimension a weight is split on over ``model``, or None."""
+        return self._split.get((name, k))
+
+    def _on(self, grid, name: str, k: str, i: int, j: int = 0):
+        """Part ``j`` of a weight (the weight, if it is not split) on data
+        row ``i``'s device ``j``."""
+        parts = self.parts(name, k)
+        j = j if len(parts) > 1 else 0
+        return parts[j].to(grid.devices[i, j])
+
+    def to_params(self) -> Params:
+        """The head's weights and statistics as islx-layout numpy params
+        (what :func:`save_npz` writes), the parts joined."""
+        out: Params = {}
+        for name, keys in self._keys.items():
+            out[name] = {}
+            for k in keys:
+                if name.startswith("bn") and k in BN_KEYS:
+                    v = getattr(self, f"{name}__{k}").detach().cpu()
+                else:
+                    parts = [p.detach().cpu() for p in self.parts(name, k)]
+                    dim = self.split_dim(name, k)
+                    v = parts[0] if dim is None else torch.cat(parts, dim)
+                out[name][k] = v.numpy().copy()
+        return out
+
+    # -- forward ---------------------------------------------------------
+
+    def _global(self, grid, rows):
+        """The rows of every shard (and process) in batch order, on the
+        first device."""
+        x = M.batch_sharding(grid).gather(rows)
+        return _AllGatherRows.apply(x) if self.world > 1 else x
+
+    def _bn(self, grid, name: str, rows, train: bool, stats=None,
+            eps: float = 1e-3):
+        """keras BatchNormalization: running statistics, or in train mode
+        the global batch's moments (recorded in ``stats``)."""
+        if train:
+            mean, var = _moments(self._global(grid, rows))
+            if stats is not None:
+                stats[name] = (mean, var)
+        else:
+            mean = getattr(self, f"{name}__mean")
+            var = getattr(self, f"{name}__var")
+        out = []
+        for i, h in enumerate(rows):
+            dev = h.device
+            out.append((h - mean.to(dev)) * torch.rsqrt(var.to(dev) + eps)
+                       * self._on(grid, name, "gamma", i)
+                       + self._on(grid, name, "beta", i))
+        return out
+
+    def _dropout(self, rows, generator, train: bool):
+        """:func:`_dropout` with one mask over the global batch's shape,
+        each row taking its slice."""
+        rate = self.cfg.dropout
+        if not train or generator is None or rate == 0.0:
+            return rows
+        n = sum(r.shape[0] for r in rows)
+        keep = _keep((n * self.world,) + tuple(rows[0].shape[1:]), rate,
+                     generator)
+        out, first = [], self.rank * n
+        for r in rows:
+            out.append(_dropout(r, rate, generator, train,
+                                keep[first:first + r.shape[0]]))
+            first += r.shape[0]
+        return out
+
+    def _dense(self, grid, name: str, rows):
+        """``h @ kernel``, each model device its columns, gathered."""
+        n = len(self.parts(name, "kernel"))
+        out = []
+        for i, h in enumerate(rows):
+            cols = [(h.to(grid.devices[i, j])
+                     @ self._on(grid, name, "kernel", i, j)).to(h.device)
+                    for j in range(n)]
+            out.append(cols[0] if n == 1 else torch.cat(cols, -1))
+        return out
+
+    def _lstm(self, grid, name: str, xs, mask, i: int, reverse: bool):
+        """:func:`_lstm` on data row ``i``, the gate columns over the
+        row's model devices."""
+        n = len(self.parts(name, "kernel"))
+        return _lstm([{k: self._on(grid, name, k, i, j)
+                       for k in ("kernel", "recurrent", "bias")}
+                      for j in range(n)], xs, mask, reverse)
+
+    def _run(self, x: torch.Tensor, train: bool, generator, stats=None):
+        grid = self._grid()
+        sharding = M.batch_sharding(grid)
+        rows = sharding.put(x.float())
+        masks = [(r != 0.0).any(dim=-1) for r in rows]
+        h = self._bn(grid, "bn0", rows, train, stats)
+        seq = []
+        for i, (r, m) in enumerate(zip(h, masks)):
+            f, _ = self._lstm(grid, "lstm1_fwd", r, m, i, reverse=False)
+            b, _ = self._lstm(grid, "lstm1_bwd", r, m, i, reverse=True)
+            seq.append(torch.cat([f, b], dim=-1))
+        seq = self._dropout(seq, generator, train)
+        h = []
+        for i, (r, m) in enumerate(zip(seq, masks)):
+            _, f = self._lstm(grid, "lstm2_fwd", r, m, i, reverse=False)
+            _, b = self._lstm(grid, "lstm2_bwd", r, m, i, reverse=True)
+            h.append(F.elu(torch.cat([f, b], dim=-1)))
+        h = self._bn(grid, "bn1", self._dense(grid, "dense1", h), train,
+                     stats)
+        h = [F.elu(t) for t in self._dropout(h, generator, train)]
+        h = self._bn(grid, "bn2", self._dense(grid, "dense2", h), train,
+                     stats)
+        if stats is not None:
+            return None
+        h = self._dropout([F.elu(t) for t in h], generator, train)
+        return sharding.gather([
+            torch.softmax(t @ self._on(grid, "dense3", "kernel", i)
+                          + self._on(grid, "dense3", "bias", i), dim=-1)
+            for i, t in enumerate(h)])
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """Probabilities [B,167]. ``train``: batch statistics in every BN
-        and, with a ``generator``, dropout at ``cfg.dropout``."""
-        x = x.float()
-        mask = (x != 0.0).any(dim=-1)
-        rate = self.cfg.dropout
-        h = _bn(self._p("bn0"), x, train)
-        h = F.elu(self._lstms(h, mask, generator, train))
-        h = _bn(self._p("bn1"), h @ self._p("dense1")["kernel"], train)
-        h = F.elu(_dropout(h, rate, generator, train))
-        h = _bn(self._p("bn2"), h @ self._p("dense2")["kernel"], train)
-        h = _dropout(F.elu(h), rate, generator, train)
-        d3 = self._p("dense3")
-        return torch.softmax(h @ d3["kernel"] + d3["bias"], dim=-1)
+        """Probabilities [B,167] of this process's rows (on the mesh's
+        first device). ``train``: batch statistics in every BN and, with a
+        ``generator``, dropout at ``cfg.dropout``."""
+        return self._run(x, train, generator)
 
     def batch_stats(self, x: torch.Tensor
                     ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         """Batch mean and population variance at every BN's input under
         the train-mode forward without dropout (islx's ``batch_stats``):
         what the training loop's EMA moves the running statistics to."""
-        x = x.float()
-        mask = (x != 0.0).any(dim=-1)
-        out = {"bn0": _moments(x)}
-        h = _bn(self._p("bn0"), x, train=True)
-        h = F.elu(self._lstms(h, mask, None, False))
-        h = h @ self._p("dense1")["kernel"]
-        out["bn1"] = _moments(h)
-        h = F.elu(_bn(self._p("bn1"), h, train=True))
-        out["bn2"] = _moments(h @ self._p("dense2")["kernel"])
-        return out
-
-    def to_params(self) -> Params:
-        """The head's weights and statistics as islx-layout numpy params
-        (what :func:`save_npz` writes)."""
-        return {name: {k: v.detach().cpu().numpy().copy()
-                       for k, v in self._p(name).items()}
-                for name in self._keys}
+        stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._run(x, True, None, stats)
+        return stats
 
 
 def from_islx_params(params: Mapping[str, Mapping[str, np.ndarray]],

@@ -58,6 +58,7 @@ from islx_torch.ops.preprocess import pad_amounts
 from islx_torch.ops.resize import (dynamic_crop_resize_batch, output_size,
                                    resize_cubic)
 from islx_torch.ops.yuv import yuv420_to_bgr
+from islx_torch.parallel import mesh as M
 from islx_torch.pose.detector import hand_detect
 
 
@@ -178,10 +179,31 @@ def _env_on(name: str):
     return None if env is None else env not in ("0", "false")
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh=: multi-device is not ported yet "
-                                  "(ROADMAP.md §1 item 8)")
+def _on_mesh(mesh, device) -> Tuple[M.Mesh, torch.device]:
+    """(the mesh a pipeline runs on, the device results land on): the 1x1
+    mesh of ``device`` (default ``"cuda"``) without a mesh; with one, its
+    first device (``device``, if given, must be it)."""
+    if mesh is None:
+        dev = resolve_device(device)
+        return M.single(dev), dev
+    dev = resolve_device(mesh.first)
+    want = None if device is None else torch.device(device)
+    if want is not None and (want.type, want.index or 0) != (
+            dev.type, dev.index or 0):
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{dev}")
+    return mesh, dev
+
+
+def _upload(mesh: M.Mesh, frames: np.ndarray):
+    """Frames to the device as flat u8, one buffer a data shard on its
+    own device; a flat host array goes whole to the first device (the
+    step splits it by frames)."""
+    frames = torch.from_numpy(np.ascontiguousarray(frames))
+    if frames.dim() == 1:
+        return frames.to(mesh.first)
+    return M.batch_sharding(mesh).put_flat(frames.reshape(-1),
+                                           frames.shape[0])
 
 
 def _host(packed) -> np.ndarray:
@@ -266,9 +288,15 @@ class BatchedBodyPipeline:
       (islx's ``multi_scale``), its PAF averaged on the /8 grid or, in
       exact mode, at the bucket's resolution.
 
-    ``mesh`` is refused (multi-device, ROADMAP.md §1 item 8); ``device``
-    defaults to ``"cuda"`` and raises without a GPU unless ``"cpu"`` is
-    asked for."""
+    ``mesh`` (:mod:`islx_torch.parallel.mesh`; default the 1x1 mesh of
+    ``device``): frames over its data axis, a copy of the net a data row
+    (``nets``; ``net`` is row 0's); each shard runs the same step on its
+    frames, all queued before any is read, and the packed buffer is
+    assembled on the mesh's first device as the unsharded one. Its kernels
+    run on every shard (islx turns its Pallas kernels off under a mesh;
+    the port launches a kernel a device). ``device`` defaults to
+    ``"cuda"`` (with a mesh, its first device) and raises without a GPU
+    unless ``"cpu"`` is asked for."""
 
     def __init__(self, params, model_type: str = "body25",
                  cfg: Optional[PoseConfig] = None,
@@ -277,12 +305,12 @@ class BatchedBodyPipeline:
                  fused_peaks: Optional[bool] = None,
                  pallas_nms: Optional[bool] = None,
                  pallas_mask: Optional[bool] = None, device=None):
-        _no_mesh(mesh)
         if paf_mode not in PAF_MODES:
             raise ValueError(f"unknown paf_mode {paf_mode!r}")
-        self.device = resolve_device(device)
+        self.mesh, self.device = _on_mesh(mesh, device)
         self.params = params
-        self.net = W.build(model_type, params, self.device, compute_dtype)
+        self.nets = M.replicate(self.mesh, lambda d: W.build(
+            model_type, params, d, compute_dtype))
         self.model_type = model_type
         self.cfg = cfg or PoseConfig(model_type=model_type)
         self.compute_dtype = compute_dtype
@@ -309,11 +337,20 @@ class BatchedBodyPipeline:
 
     # -- device --------------------------------------------------------
 
-    def _single_scale(self, frames, thre1, hb, wb):
+    @property
+    def net(self):
+        """Data row 0's net."""
+        return self.nets[0]
+
+    @net.setter
+    def net(self, value):
+        self.nets[0] = value
+
+    def _single_scale(self, frames, thre1, hb, wb, row):
         cfg = self.cfg
         with record_function("body_cpm"):
-            paf8, heat8 = self.net(frames.float() / 256.0 - 0.5,
-                                   self.compute_dtype)
+            paf8, heat8 = self.nets[row](frames.float() / 256.0 - 0.5,
+                                         self.compute_dtype)
         with record_function("body_peaks"):
             joints = heat8[..., :cfg.njoint - 1]
             if not self.fused_peaks:       # every channel, as islx resizes
@@ -331,7 +368,7 @@ class BatchedBodyPipeline:
                                               border=-float("inf"))
         return pk, paf8
 
-    def _multi_scale(self, frames, thre1, hb, wb):
+    def _multi_scale(self, frames, thre1, hb, wb, row):
         """The scale pyramid (islx/pipeline/batch_pose.py:349-409): each
         scale's upsample -> de-pad -> back-to-bucket chain is one folded
         matrix per axis."""
@@ -354,7 +391,7 @@ class BatchedBodyPipeline:
                 x = F.pad(x, (0, 0, 0, pr, 0, pd),
                           value=float(cfg.pad_value)) / 256.0 - 0.5
             with record_function("body_cpm"):
-                paf8_s, heat8_s = self.net(x, self.compute_dtype)
+                paf8_s, heat8_s = self.nets[row](x, self.compute_dtype)
             heat8s.append(heat8_s[..., :cfg.njoint - 1])
             paf8s.append(paf8_s)
             h8p, w8p = (hs + pd) // cfg.stride, (ws + pr) // cfg.stride
@@ -406,31 +443,35 @@ class BatchedBodyPipeline:
         return LimbScores(score=torch.stack([p.score for p in per]),
                           ok=torch.stack([p.ok for p in per]))
 
-    def core(self, frames: torch.Tensor, thre1: float, hb: int, wb: int):
-        """frames [B,hb,wb,3] u8-valued -> (Peaks, CompactConnections)."""
+    def core(self, frames: torch.Tensor, thre1: float, hb: int, wb: int,
+             row: int = 0):
+        """frames [B,hb,wb,3] u8-valued (data row ``row``'s, on its
+        device) -> (Peaks, CompactConnections)."""
         multi = len(self.cfg.scale_search) > 1
         if multi:
-            pk, paf_in = self._multi_scale(frames, thre1, hb, wb)
+            pk, paf_in = self._multi_scale(frames, thre1, hb, wb, row)
         else:
-            pk, paf_in = self._single_scale(frames, thre1, hb, wb)
+            pk, paf_in = self._single_scale(frames, thre1, hb, wb, row)
         with record_function("paf_limbs"):
             ls = self._limb_scores(paf_in, pk, hb, wb, multi)
             return pk, compact_connections(ls, self.top_m)
 
-    def upload_frames(self, frames: np.ndarray) -> torch.Tensor:
-        """A frame batch as one flat u8 device buffer (the fused hand
-        pipeline's ``from_frames`` reads the same upload)."""
-        return torch.from_numpy(np.ascontiguousarray(frames).reshape(-1)).to(
-            self.device)
+    def upload_frames(self, frames: np.ndarray):
+        """A frame batch as flat u8 device buffers, one a data shard (the
+        fused hand pipeline's ``from_frames`` reads the same upload)."""
+        return _upload(self.mesh, frames)
 
     @torch.inference_mode()
-    def device_step_flat(self, flat: torch.Tensor, b: int, hb: int, wb: int,
+    def device_step_flat(self, flat, b: int, hb: int, wb: int,
                          thre1: Optional[float] = None) -> torch.Tensor:
-        """flat u8 frames on the device -> the packed result buffer (on the
-        device); ``thre1`` overrides the config's peak threshold."""
+        """flat u8 frames on the device (one buffer, or ``upload_frames``'
+        shards) -> the packed result buffer (on the device); ``thre1``
+        overrides the config's peak threshold."""
         t1 = float(np.float32(self.cfg.thre1 if thre1 is None else thre1))
-        frames = flat.reshape(b, hb, wb, 3)
-        pk, cc = self.core(frames, t1, hb, wb)
+        sharding = M.batch_sharding(self.mesh)
+        pk, cc = sharding.gather([
+            self.core(s.reshape(-1, hb, wb, 3), t1, hb, wb, row)
+            for row, s in enumerate(sharding.put_flat(flat, b))])
         with record_function("pack"):
             return _pack_body(pk, cc, self.pack_mode)
 
@@ -538,30 +579,44 @@ class BatchedHandPipeline:
     of the average with ``peak_mode`` ``"cc"`` (connected components: the
     ``cc_label`` kernel over all N crops' planes) or ``"fast"`` (global
     maximum). ``crop_chunk`` is islx's compile-time knob; it changes no
-    result and the port computes the crops in one batch. ``mesh`` is
-    refused (ROADMAP.md §1 item 8)."""
+    result and the port computes the crops in one batch. ``mesh`` (default
+    the 1x1 mesh of ``device``): the crops (or boxes) over its data axis,
+    a copy of the net a data row (``nets``; ``net`` is row 0's); a box may
+    name a frame another shard holds, and ``from_frames`` copies each
+    shard the frames its boxes name (islx all-gathers the frame
+    buffer)."""
 
     def __init__(self, params, cfg: Optional[HandConfig] = None,
                  crop_size: int = 368, compute_dtype=torch.bfloat16,
                  mesh=None, peak_mode: str = "cc",
                  crop_chunk: Optional[int] = None, device=None):
-        _no_mesh(mesh)
         if peak_mode not in ("cc", "fast"):
             raise ValueError(f"unknown peak_mode {peak_mode!r}")
-        self.device = resolve_device(device)
+        self.mesh, self.device = _on_mesh(mesh, device)
         self.params = params
-        self.net = W.build("hand", params, self.device, compute_dtype)
+        self.nets = M.replicate(self.mesh, lambda d: W.build(
+            "hand", params, d, compute_dtype))
         self.cfg = cfg or HandConfig()
         self.crop_size = crop_size
         self.compute_dtype = compute_dtype
         self.peak_mode = peak_mode
         self.crop_chunk = crop_chunk
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        with record_function("hand_cpm"):
-            return self.net(x, self.compute_dtype, self.cfg.stages)
+    @property
+    def net(self):
+        """Data row 0's net."""
+        return self.nets[0]
 
-    def run_scale(self, crops: torch.Tensor, s: float) -> torch.Tensor:
+    @net.setter
+    def net(self, value):
+        self.nets[0] = value
+
+    def _forward(self, x: torch.Tensor, row: int) -> torch.Tensor:
+        with record_function("hand_cpm"):
+            return self.nets[row](x, self.compute_dtype, self.cfg.stages)
+
+    def run_scale(self, crops: torch.Tensor, s: float,
+                  row: int = 0) -> torch.Tensor:
         """crops [N,S,S,3] u8-valued -> the scale's heatmap [N,size,size,
         22] (resized to size = rint(s * boxsize), stride-padded,
         normalized, CPM, x8 upsample, de-padded)."""
@@ -573,14 +628,15 @@ class BatchedHandPipeline:
                  else resize_cubic(crops, size, size, saturate_uint8=True))
             x = F.pad(x, (0, 0, 0, pr, 0, pd),
                       value=float(cfg.pad_value)) / 256.0 - 0.5
-        heat = self._forward(x)
+        heat = self._forward(x, row)
         with record_function("hand_maps"):
             return resize_cubic(heat, size + pd, size + pr)[:, :size, :size]
 
     @torch.inference_mode()
-    def peaks(self, crops: torch.Tensor) -> Tuple[HandPeaks, float]:
-        """crops [N,S,S,3] on the device -> (HandPeaks, the factor from the
-        peaks' coords to crop coords)."""
+    def peaks(self, crops: torch.Tensor, row: int = 0
+              ) -> Tuple[HandPeaks, float]:
+        """crops [N,S,S,3] on data row ``row``'s device -> (HandPeaks, the
+        factor from the peaks' coords to crop coords)."""
         cfg = self.cfg
         s0 = self.crop_size
         if len(cfg.scale_search) == 1:
@@ -590,13 +646,13 @@ class BatchedHandPipeline:
             with record_function("hand_resize"):
                 x = (crops.float() if size == s0 else resize_cubic(
                     crops, size, size, saturate_uint8=True))
-            heat = self._forward(x / 256.0 - 0.5)
+            heat = self._forward(x / 256.0 - 0.5, row)
             with record_function("hand_peaks"):
                 pk = find_hand_peaks_refine(heat[..., :cfg.n_parts], cfg.thre)
             return pk, float(np.float32(s0 / size))
         heat_sum = None
         for s in cfg.scale_search:
-            m = self.run_scale(crops, s)
+            m = self.run_scale(crops, s, row)
             with record_function("hand_maps"):
                 m = div(resize_cubic(m, s0, s0), len(cfg.scale_search))
                 heat_sum = m if heat_sum is None else heat_sum + m
@@ -608,15 +664,18 @@ class BatchedHandPipeline:
     def __call__(self, crops: np.ndarray) -> np.ndarray:
         """crops u8 [N,S,S,3] (S = crop_size) -> peaks [N,21,2] int32 in
         crop coords, (0, 0) where a part is missing."""
-        x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device)
-        pk, scale = self.peaks(x)
+        sharding = M.batch_sharding(self.mesh)
+        outs = [self.peaks(s, row) for row, s in enumerate(
+            sharding.put(torch.from_numpy(np.ascontiguousarray(crops))))]
+        pk, scale = sharding.gather([o[0] for o in outs]), outs[0][1]
         xy = pk.xy.cpu().numpy().astype(np.float64) * scale
         found = pk.found.cpu().numpy()
         return np.where(found[:, :, None], np.rint(xy).astype(np.int32), 0)
 
-    def core(self, frames: torch.Tensor, boxes: torch.Tensor):
+    def core(self, frames: torch.Tensor, boxes: torch.Tensor, row: int = 0):
         """frames [b,hb,wb,3], boxes [N,4] int32 (frame, x0, y0, w; w <= 0
-        invalid) -> (xy [N,21,2] f32 in frame coords, valid [N,21])."""
+        invalid), on data row ``row``'s device -> (xy [N,21,2] f32 in
+        frame coords, valid [N,21])."""
         cfg = self.cfg
         if len(cfg.scale_search) != 1:
             raise ValueError("the crops-from-frames hand path is "
@@ -627,8 +686,8 @@ class BatchedHandPipeline:
                 frames, boxes[:, 0], boxes[:, 1], boxes[:, 2],
                 torch.clamp_min(boxes[:, 3], 1), size)      # [N,s,s,3]
         with record_function("hand_cpm"):
-            heat = self.net(crops / 256.0 - 0.5, self.compute_dtype,
-                            cfg.stages)
+            heat = self.nets[row](crops / 256.0 - 0.5, self.compute_dtype,
+                                  cfg.stages)
         with record_function("hand_peaks"):
             pk = find_hand_peaks_refine(heat[..., :cfg.n_parts], cfg.thre)
         scale = div(boxes[:, 3:4].float(), size)
@@ -638,14 +697,28 @@ class BatchedHandPipeline:
         return xy, valid
 
     @torch.inference_mode()
-    def from_frames(self, frames_flat: torch.Tensor, b: int, hb: int,
-                    wb: int, boxes: np.ndarray) -> np.ndarray:
-        """frames_flat: the flat u8 device buffer of [b,hb,wb,3]; boxes
-        [N,4] (frame_idx, x0, y0, w) in frame coords, w <= 0 pads -> peaks
-        [N,21,2] int32 in frame coords ((0, 0) = missing)."""
-        bx = torch.from_numpy(np.ascontiguousarray(boxes, np.int32)).to(
-            frames_flat.device)
-        xy, valid = self.core(frames_flat.reshape(b, hb, wb, 3), bx)
+    def from_frames(self, frames_flat, b: int, hb: int, wb: int,
+                    boxes: np.ndarray) -> np.ndarray:
+        """frames_flat: the flat u8 device buffer of [b,hb,wb,3] (or
+        ``upload_frames``' shards); boxes [N,4] (frame_idx, x0, y0, w) in
+        frame coords, w <= 0 pads -> peaks [N,21,2] int32 in frame coords
+        ((0, 0) = missing). The boxes split over the data axis; each shard
+        copies the frames its boxes name from the shards that hold them."""
+        sharding = M.batch_sharding(self.mesh)
+        frames = [f.reshape(-1, hb, wb, 3)
+                  for f in sharding.put_flat(frames_flat, b)]
+        boxes = np.ascontiguousarray(boxes, np.int32)
+        cuts = np.cumsum(M.split_sizes(len(boxes),
+                                       self.mesh.shape[M.DATA_AXIS]))
+        outs = []
+        for row, (part, dev) in enumerate(zip(np.split(boxes, cuts[:-1]),
+                                              self.mesh.data_devices)):
+            mine, idx = M.gather_rows(frames, part[:, 0], dev)
+            local = part.copy()
+            local[:, 0] = idx
+            outs.append(self.core(mine, torch.from_numpy(local).to(dev),
+                                  row))
+        xy, valid = sharding.gather(outs)
         xy, valid = xy.cpu().numpy(), valid.cpu().numpy()
         return np.where(valid[:, :, None], np.rint(xy).astype(np.int32), 0)
 
@@ -659,8 +732,12 @@ class FusedPosePipeline:
     ``hand.params`` (the server's int8 swap calibrates them); ``device``
     defaults to ``"cuda"`` and raises when no GPU is present unless
     ``"cpu"`` is asked for; ``pallas_nms`` is :class:`BatchedBodyPipeline`'s,
-    and so is the pack mode (``ISLX_PACK_MODE``); ``mesh`` is refused
-    (ROADMAP.md §1 item 8).
+    and so is the pack mode (``ISLX_PACK_MODE``). ``mesh`` (default the
+    1x1 mesh of ``device``): frames over its data axis, a copy of both
+    nets a data row; each shard runs the whole step on its frames (a frame's hand boxes name its own frame, so
+    no frame crosses shards), every shard is queued before any is read,
+    and the packed buffer is assembled on the mesh's first device, the
+    same words as the unsharded step's.
 
     ``_programs`` records the :meth:`program_key` of every shape the
     pipeline has stepped, in first-step order. islx compiles one program a
@@ -676,17 +753,16 @@ class FusedPosePipeline:
                  compute_dtype=torch.bfloat16, top_m: int = 48,
                  crop_chunk: Optional[int] = None, mesh=None, device=None,
                  pallas_nms: Optional[bool] = None):
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
+        self.mesh, self.device = _on_mesh(mesh, device)
         self.body = BatchedBodyPipeline(
             body_params, model_type,
             pose_cfg or PoseConfig(model_type=model_type, max_peaks=16),
-            compute_dtype=compute_dtype, top_m=top_m, pallas_nms=pallas_nms,
-            device=self.device)
+            compute_dtype=compute_dtype, mesh=self.mesh, top_m=top_m,
+            pallas_nms=pallas_nms, device=self.device)
         self.hand = BatchedHandPipeline(
             hand_params, hand_cfg or HandConfig.production(),
-            compute_dtype=compute_dtype, crop_chunk=crop_chunk,
-            device=self.device)
+            compute_dtype=compute_dtype, mesh=self.mesh,
+            crop_chunk=crop_chunk, device=self.device)
         self.det_cfg = det_cfg or DetectorConfig()
         self.model_type = model_type
         self._programs: Dict[tuple, None] = {}
@@ -720,22 +796,17 @@ class FusedPosePipeline:
             for key in [k for k in self._programs if k[1:3] == (hb, wb)]:
                 del self._programs[key]
 
-    def upload_frames(self, frames: np.ndarray) -> torch.Tensor:
-        """A frame batch (u8 BGR or I420 bytes) as one flat device buffer."""
-        return torch.from_numpy(np.ascontiguousarray(frames).reshape(-1)).to(
-            self.device)
+    def upload_frames(self, frames: np.ndarray):
+        """A frame batch (u8 BGR or I420 bytes) as flat device buffers, one
+        a data shard."""
+        return _upload(self.mesh, frames)
 
-    @torch.inference_mode()
-    def device_step_flat(self, flat: torch.Tensor, b: int, hb: int, wb: int,
-                         orig_hw: Tuple[int, int],
-                         thre1: Optional[float] = None,
-                         input_format: str = "bgr") -> torch.Tensor:
-        """flat u8 frames on the device -> packed int32 result buffer.
-
-        input_format: ``"bgr"`` ([b*hb*wb*3]) or ``"yuv420"`` (I420 planes,
-        [b*hb*wb*3/2])."""
-        t1 = float(np.float32(self.body.cfg.thre1 if thre1 is None
-                              else thre1))
+    def _step(self, flat: torch.Tensor, b: int, hb: int, wb: int,
+              t1: float, sy: float, sx: float, input_format: str,
+              first: int, row: int):
+        """Data row ``row``'s step on its ``b`` frames, the batch's frames
+        from ``first`` on -> (peaks, connections, hand boxes [b*2,4]
+        naming batch frames, hand xy, hand valid) on the row's device."""
         if input_format == "yuv420":
             with record_function("yuv420_to_bgr"):
                 frames = yuv420_to_bgr(flat, b, hb, wb)
@@ -743,20 +814,46 @@ class FusedPosePipeline:
             frames = flat.reshape(b, hb, wb, 3)
         else:
             raise ValueError(f"unknown input_format {input_format!r}")
-        key = self.program_key(b, hb, wb, orig_hw, input_format)
-        with self._programs_lock:
-            self._programs[key] = None
-        sy, sx = key[3], key[4]
-        pk, cc = self.body.core(frames, t1, hb, wb)
+        pk, cc = self.body.core(frames, t1, hb, wb, row)
         with record_function("hand_boxes"):
             boxes2 = device_hand_boxes(pk.xy, cc.pair, cc.score, cc.ok,
                                        self.body.limb_seq, sy, sx, hb, wb,
                                        self.det_cfg)             # [B,2,3]
-            fidx = torch.arange(b, dtype=torch.int32, device=flat.device)
+            fidx = torch.arange(b, dtype=torch.int32, device=frames.device)
             fidx = fidx[:, None, None].expand(b, self.MAX_HANDS, 1)
             boxes = torch.cat([fidx, boxes2], -1).reshape(
                 b * self.MAX_HANDS, 4)
-        hxy, hvalid = self.hand.core(frames, boxes)
+        hxy, hvalid = self.hand.core(frames, boxes, row)
+        if first:
+            boxes = boxes + torch.tensor([first, 0, 0, 0], dtype=torch.int32,
+                                         device=boxes.device)
+        return pk, cc, boxes, hxy, hvalid
+
+    @torch.inference_mode()
+    def device_step_flat(self, flat, b: int, hb: int, wb: int,
+                         orig_hw: Tuple[int, int],
+                         thre1: Optional[float] = None,
+                         input_format: str = "bgr") -> torch.Tensor:
+        """flat u8 frames on the device -> packed int32 result buffer.
+
+        input_format: ``"bgr"`` ([b*hb*wb*3]) or ``"yuv420"`` (I420 planes,
+        [b*hb*wb*3/2]); ``flat`` is one buffer or ``upload_frames``'
+        shards."""
+        t1 = float(np.float32(self.body.cfg.thre1 if thre1 is None
+                              else thre1))
+        key = self.program_key(b, hb, wb, orig_hw, input_format)
+        with self._programs_lock:
+            self._programs[key] = None
+        sy, sx = key[3], key[4]
+        sharding = M.batch_sharding(self.mesh)
+        outs, first = [], 0
+        for row, (shard, n) in enumerate(zip(
+                sharding.put_flat(flat, b),
+                M.split_sizes(b, self.mesh.shape[M.DATA_AXIS]))):
+            outs.append(self._step(shard, n, hb, wb, t1, sy, sx,
+                                   input_format, first, row))
+            first += n
+        pk, cc, boxes, hxy, hvalid = sharding.gather(outs)
         mode = self.body.pack_mode
         with record_function("pack"):
             body = _pack_body(pk, cc, mode)
@@ -769,7 +866,7 @@ class FusedPosePipeline:
                            torch.round(hxy[..., 1]).to(torch.int32))
             if mode == "bits16":           # 21 found bits in one word
                 bits = torch.arange(hvalid.shape[-1], dtype=torch.int32,
-                                    device=flat.device)
+                                    device=self.device)
                 hv = (hvalid.to(torch.int32) << bits).sum(-1,
                                                           dtype=torch.int32)
             else:

@@ -36,7 +36,10 @@ class BatchedTranslatePipeline:
     """Streaming frames -> per-frame sign predictions, batch-at-a-time.
 
     Weights default to the port's seeded init; ``head_params`` is islx's
-    keras-layout numpy dict. ``device`` defaults to ``"cuda"``."""
+    keras-layout numpy dict. ``device`` defaults to ``"cuda"``. ``mesh``
+    (:mod:`islx_torch.parallel.mesh`) shards each batch's fused step over
+    its data axis, which must divide ``batch``; the head runs on the
+    mesh's first device."""
 
     def __init__(self, body_params=None, hand_params=None,
                  head_params: Optional[T.Params] = None,
@@ -45,10 +48,14 @@ class BatchedTranslatePipeline:
                  hand_cfg: Optional[HandConfig] = None,
                  cfg: TranslatorConfig = TranslatorConfig(),
                  batch: int = 16, compute_dtype=torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.batch = batch
         self.model_type = model_type
+        if mesh is not None and batch % mesh.shape["data"]:
+            raise ValueError(
+                f"batch {batch} not divisible by mesh data axis "
+                f"{mesh.shape['data']}")
         self.pipe = FusedPosePipeline(
             body_params if body_params is not None
             else W.init_params(model_type),
@@ -57,7 +64,7 @@ class BatchedTranslatePipeline:
             model_type,
             pose_cfg or PoseConfig(model_type=model_type, max_peaks=16),
             hand_cfg or HandConfig.production(),
-            compute_dtype=compute_dtype, device=device)
+            compute_dtype=compute_dtype, device=device, mesh=mesh)
         self.device = self.pipe.device
         # runtime peak-threshold override; None = pose_cfg.thre1
         self.thre1: Optional[float] = None
@@ -199,7 +206,8 @@ class BatchedTranslatePipeline:
                 flat_batches(iter(flat_frames), self.batch), depth=2):
             t0 = time.perf_counter()
             packed = self.pipe.device_step_flat(
-                self.pipe.upload_frames(flat), self.batch, hb, wb, orig_hw,
+                self.pipe.upload_frames(flat.reshape(self.batch, -1)),
+                self.batch, hb, wb, orig_hw,
                 self.thre1, input_format="yuv420")
             self._tick("dispatch", t0)
             if pending is not None:

@@ -333,7 +333,8 @@ class MicroBatcher:
         new_pipe = FusedPosePipeline(
             bq, hq, old.model_type, old.body.cfg, old.hand.cfg,
             det_cfg=old.det_cfg, compute_dtype=cd, top_m=old.body.top_m,
-            device=old.device, pallas_nms=old.body.pallas_nms)
+            mesh=old.mesh, device=old.device,
+            pallas_nms=old.body.pallas_nms)
         # one step of every shape the float pipeline served, the
         # calibration bucket's first: it builds the int8 kernels and sizes
         # the memory pools before any request meets the new pipeline. Keys

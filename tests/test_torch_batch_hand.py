@@ -25,6 +25,7 @@ from islx.pipeline import batch_pose as JBP
 from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig
 from islx_torch.ops import hand_peaks as THP
+from islx_torch.parallel import mesh as M
 from islx_torch.pipeline import batch_pose as TBP
 
 
@@ -149,8 +150,14 @@ def test_from_frames_and_crop_chunk(monkeypatch, state, chunk):
 
 
 def test_call_refusals(state):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TBP.BatchedHandPipeline(state, mesh=object(), device="cpu")
+    mesh = M.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="first device"):
+        TBP.BatchedHandPipeline(state, mesh=mesh, device="meta")
+    with pytest.raises(ValueError, match="not divisible"):
+        TBP.BatchedHandPipeline(state, HandConfig(scale_search=(0.25,)),
+                                mesh=mesh).from_frames(
+            torch.zeros(2 * 48 * 48 * 3, dtype=torch.uint8), 2, 48, 48,
+            np.zeros((3, 4), np.int32))
     with pytest.raises(ValueError, match="peak_mode"):
         TBP.BatchedHandPipeline(state, peak_mode="nope", device="cpu")
     tp = TBP.BatchedHandPipeline(state, HandConfig(scale_search=(0.5, 1.0)),

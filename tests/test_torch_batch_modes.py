@@ -31,6 +31,7 @@ from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig, PoseConfig
 from islx_torch.ops import paf as TPaf
 from islx_torch.ops import peaks as TPk
+from islx_torch.parallel import mesh as M
 from islx_torch.pipeline import batch_pose as TBP
 
 
@@ -215,8 +216,9 @@ def test_pallas_nms_and_mask_flags(monkeypatch, state):
 
 
 def test_call_and_refusals(monkeypatch, state):
-    """``__call__`` scales candidates to ``orig_hw`` as islx's does; mesh
-    and unknown modes are refused."""
+    """``__call__`` scales candidates to ``orig_hw`` as islx's does; on a
+    data mesh of 2 the same results; a device other than the mesh's
+    first and unknown modes are refused."""
     jp, tp = _pipes(monkeypatch, state)
     frames = _frames(seed=4)
     got = tp(frames, orig_hw=(96, 128), thre1=0.2)
@@ -225,8 +227,18 @@ def test_call_and_refusals(monkeypatch, state):
     for (c, s), (jc, js) in zip(got, want):
         np.testing.assert_array_equal(c[:, [0, 1, 3]], jc[:, [0, 1, 3]])
         np.testing.assert_array_equal(s[:, :-2], js[:, :-2])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TBP.BatchedBodyPipeline(state, mesh=object(), device="cpu")
+    # the port's own net: the stub's maps depend on the batch's shape
+    mesh = M.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    one = TBP.BatchedBodyPipeline(state, "body25", tp.cfg,
+                                  compute_dtype=torch.float32, device="cpu")
+    tm = TBP.BatchedBodyPipeline(state, "body25", tp.cfg,
+                                 compute_dtype=torch.float32, mesh=mesh)
+    for (c, s), (mc, ms) in zip(one(frames, (96, 128), 0.2),
+                                tm(frames, (96, 128), 0.2)):
+        np.testing.assert_array_equal(mc, c)
+        np.testing.assert_array_equal(ms, s)
+    with pytest.raises(ValueError, match="first device"):
+        TBP.BatchedBodyPipeline(state, mesh=mesh, device="meta")
     with pytest.raises(ValueError, match="paf_mode"):
         TBP.BatchedBodyPipeline(state, paf_mode="nope", device="cpu")
 

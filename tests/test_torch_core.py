@@ -178,7 +178,9 @@ def test_port_modules_import_no_jax_or_islx():
             "islx_torch.cli.quantize", "islx_torch.cli.summary",
             "islx_torch.utils.summary", "islx_torch.utils.profiling",
             "islx_torch.models.keras_export",
-            "islx_torch.models.one_model"} <= set(names)
+            "islx_torch.models.one_model", "islx_torch.parallel.mesh",
+            "islx_torch.parallel.sharding",
+            "islx_torch.parallel.pipeline"} <= set(names)
     code = ("import importlib, json, sys\n"
             f"for n in {sorted(names)!r}: importlib.import_module(n)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "

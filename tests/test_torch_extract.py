@@ -522,7 +522,9 @@ def test_csv_read_and_write_follow_pandas(tmp_path, case):
 def test_cli_routing(env, tmp_path, monkeypatch):
     """The int8 gate is consulted only with both weight files (under
     ISLX_INT8=1 too, as islx's CLI); --exact builds ISLSignPos; the shard
-    defaults are 0 and 1 with no process group; --mesh-data is refused."""
+    defaults are 0 and 1 with no process group; --mesh-data builds the
+    fused pipeline on a data mesh, and islx's refusals stand: with
+    --exact, and with a --batch it does not divide."""
     from islx_torch import cli as gate
 
     seen = {}
@@ -539,7 +541,8 @@ def test_cli_routing(env, tmp_path, monkeypatch):
                             batch=batch) or "out.csv")
     monkeypatch.setattr(TBP, "FusedPosePipeline",
                         type("FusedPosePipeline", (), {
-                            "__init__": lambda self, *a, **k: None}))
+                            "__init__": lambda self, *a, **k: seen.update(
+                                mesh=k.get("mesh"))}))
     TCLI.main([env["table"], str(tmp_path), "--hand-weights", env["hw"],
                "--device", "cpu"])
     assert "gate" not in seen
@@ -553,9 +556,45 @@ def test_cli_routing(env, tmp_path, monkeypatch):
                "--shard-index", "1", "--num-shards", "3"])
     assert seen["pose"] == "ISLSignPos" and seen["shard"] == (1, 3)
     assert seen["batch"] is None
-    with pytest.raises(SystemExit):
-        TCLI.main([env["table"], str(tmp_path), "--mesh-data", "2"])
+    assert seen["mesh"] is None
+    TCLI.main([env["table"], str(tmp_path), "--mesh-data", "2", "--device",
+               "cpu"])
+    assert seen["pose"] == "FusedPosePipeline"
+    assert seen["mesh"].shape == {"data": 2, "model": 1}
+    for bad in (["--exact"], ["--batch", "3"]):
+        with pytest.raises(SystemExit):
+            TCLI.main([env["table"], str(tmp_path), "--mesh-data", "2"]
+                      + bad)
     assert TCLI._first_video(str(tmp_path / "none.csv"), "Filepath") is None
+
+
+def test_cli_mesh_records_equal(env, fused, tmp_path, monkeypatch):
+    """``--mesh-data 2`` writes the same files, byte for byte, as the same
+    run on one device (the env's CPM forwards on every shard)."""
+    plain = TBP.FusedPosePipeline()          # the env's pipeline, built
+    common = [env["table"], "--body-weights", env["bw"], "--hand-weights",
+              env["hw"], "--sticks", "--batch", "2", "--device", "cpu"]
+    env["mp"].setattr(TE, "time", Clock())
+    TCLI.main([common[0], str(tmp_path / "one")] + common[1:])
+    cls, built = type(plain), []
+
+    def mesh_fused(*a, mesh=None, **k):
+        pipe = cls(*a, mesh=mesh, pose_cfg=plain.body.cfg,
+                   compute_dtype=torch.float32, **k)
+        pipe.body.nets[:] = [plain.body.net] * len(pipe.body.nets)
+        pipe.hand.nets[:] = [plain.hand.net] * len(pipe.hand.nets)
+        built.append(pipe)
+        return pipe
+
+    monkeypatch.setattr(TBP, "FusedPosePipeline", mesh_fused)
+    env["mp"].setattr(TE, "time", Clock())
+    TCLI.main([common[0], str(tmp_path / "mesh")] + common[1:]
+              + ["--mesh-data", "2"])
+    assert built[0].mesh.shape == {"data": 2, "model": 1}
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    assert tree(mesh) == tree(one) and len(tree(one)) > 9
+    for rel in tree(one):
+        assert (mesh / rel).read_bytes() == (one / rel).read_bytes(), rel
 
 
 def test_dataclass_and_paths_equal(tmp_path):

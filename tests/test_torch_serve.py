@@ -33,6 +33,7 @@ from islx.models import cpm as JC
 from islx.pipeline import batch_pose as JBP
 from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig, PoseConfig
+from islx_torch.parallel import mesh as M
 from islx_torch.pipeline import batch_pose as TBP
 from islx_torch.serve import MicroBatcher, PoseServer
 
@@ -518,6 +519,71 @@ def test_cli_serves_coco(monkeypatch):
     assert pipe.model_type == "coco"
     assert pipe.body.cfg.njoint == 19
     assert pipe.body.limb_seq.shape[0] == 19
+
+
+def test_mesh_serving_and_int8_swap_keep_the_mesh(params):
+    """A pipeline on a data mesh of 2 serves what the one-device pipeline
+    serves; the int8 swap builds its pipeline on the same mesh, whose
+    results equal a direct step of the same int8 weights on one device."""
+    body, hand, pose = params
+    mesh = M.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    meshed = TBP.FusedPosePipeline(W.from_islx_params(body),
+                                   W.from_islx_params(hand),
+                                   pose_cfg=PoseConfig(**pose),
+                                   hand_cfg=HandConfig(**HAND),
+                                   compute_dtype=torch.float32, mesh=mesh)
+    frames = _frames(3, [(96, 96)] * 3)
+    one = MicroBatcher(_port_pipe(params), max_batch=2, max_wait_ms=50.0,
+                       target_h=48)
+    b = MicroBatcher(meshed, max_batch=2, max_wait_ms=50.0, target_h=48,
+                     quantize_after=2)
+    try:
+        want = [f.result(timeout=600) for f in
+                [one.submit(f) for f in frames[:2]]]
+        got = [f.result(timeout=600) for f in
+               [b.submit(f) for f in frames[:2]]]
+        _same_results(got, want)
+        b._quant_thread.join(timeout=600)
+        assert "quantize_error" not in b.stats()
+        assert b.submit(frames[2]).result(timeout=600) is not None
+        assert b.stats()["quantized"] and b.pipe is not meshed
+        assert b.pipe.mesh is mesh and b.pipe.body.net.quantized
+        served = b.submit(frames[2]).result(timeout=600)
+    finally:
+        b.close()
+        one.close()
+    direct = TBP.FusedPosePipeline(b.pipe.body.params, b.pipe.hand.params,
+                                   pose_cfg=PoseConfig(**pose),
+                                   hand_cfg=HandConfig(**HAND),
+                                   compute_dtype=torch.float32, device="cpu")
+    ref = MicroBatcher(direct, max_batch=2, max_wait_ms=50.0, target_h=48)
+    try:
+        _same_results([served], [ref.submit(frames[2]).result(timeout=600)])
+    finally:
+        ref.close()
+
+
+def test_cli_serves_on_mesh(monkeypatch, capsys):
+    """``--mesh-data 2`` builds the pipeline on a data mesh of 2; a
+    --max-batch it does not divide is refused, as islx refuses it."""
+    from islx_torch.cli import serve as cli
+
+    monkeypatch.delenv("ISLX_INT8", raising=False)
+    seen = {}
+
+    def interrupt(self):
+        seen["pipe"] = self.batcher.pipe
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(PoseServer, "serve_forever", interrupt)
+    monkeypatch.setattr(PoseServer, "close", lambda self: None)
+    cli.main(["--port", "0", "--device", "cpu", "--mesh-data", "2",
+              "--max-batch", "4"])
+    assert seen["pipe"].mesh.shape == {"data": 2, "model": 1}
+    with pytest.raises(SystemExit):
+        cli.main(["--port", "0", "--device", "cpu", "--mesh-data", "2",
+                  "--max-batch", "3"])
+    assert "not divisible" in capsys.readouterr().err
 
 
 def test_cli_gate(monkeypatch, tmp_path):

@@ -288,7 +288,23 @@ def test_cli_keras_bundle_lines_equal_npz(env, tmp_path):
 
 
 def test_cli_rejects_unported_flags(env, capsys):
-    for flag, value, item in (("--mesh-data", "2", "item 8"),):
+    """--mesh-data is ported; islx's refusals of it stand: without
+    --batched, and with a --batch it does not divide."""
+    for argv, why in ((["--mesh-data", "2"], "requires --batched"),
+                      (["--batched", "--batch", "3", "--mesh-data", "2"],
+                       "not divisible")):
         with pytest.raises(SystemExit):
-            TCLI.main([env["clip"], flag, value, "--device", "cpu"])
-        assert item in capsys.readouterr().err
+            TCLI.main([env["clip"]] + argv + ["--device", "cpu"])
+        err = capsys.readouterr().err
+        assert why in err and "item 8" not in err
+
+
+def test_cli_batched_mesh_lines_equal(env):
+    """--batched on a data mesh of 2 prints the one-device run's lines."""
+    p = env["paths"]
+    args = [env["clip"], "--batched", "--batch", "2", "--body-weights",
+            p["body.npz"], "--hand-weights", p["hand.npz"], "--head",
+            p["head.npz"], "--device", "cpu"]
+    want = run(TCLI.main, args)
+    got = run(TCLI.main, args + ["--mesh-data", "2"])
+    assert len(want) == 2 and got == want
