@@ -84,6 +84,26 @@ Phases (any failure exits non-zero and the last line is never printed):
    batch the card's loss and gradients against the CPU's (the CPMs' on
    64x64 corners); ms/step, samples/s and peak memory beside the card
    line; no kernel of the port launches (training runs none);
+5e. serving warm starts (islx_torch.core.aot): serve-184s6 (5b's weights,
+   thre1 and thre2, B=8, 184x144 frames) answered first in fresh processes,
+   each on a copy of islx_torch without a build directory, the seconds to
+   the first response split into import, build (library builds, installs
+   and loads), construction and first step: cold (empty build directory:
+   nms_mask.cu and grouping.cpp compiled), restart (the cold copy's
+   libraries present, no artifact), warm (an artifact written by
+   cli/export_programs.export in this process, on the libraries it
+   loaded, then loaded by MicroBatcher(aot_dir=), with an nvcc and a g++
+   that fail first on PATH and CUDA_HOME at an empty toolkit, so any
+   compile raises) and int8 warm (an artifact of the export CLI's
+   ``--int8``, run in this process, serving int8 states of the same
+   weights quantized here); the warm legs must hold the key before
+   traffic with no request counted, compile nothing and load nothing in
+   their first step;
+   the first responses' integer words equal the cold leg's (bf16) and this
+   process's int8 step on the same frames and states (int8); each leg
+   serves the frames once more with every NMS mask call (and conv_q and
+   quantize call) held against its plain version, and launches the cold
+   leg's kernels (int8: nms_mask_rows, conv_q and quantize);
 6. the reference-parity path at full width in f32: ``ISLSignPos(Body,
    Hand)`` on a seeded 720x1280 frame and ``Hand`` on two 256x256 crops;
    the launch counters must show the NMS+first-K, PAF-sampling and
@@ -180,7 +200,7 @@ line.
 
 runs phases 1-3 and 7 only and prints their numbers as one JSON line;
 ``--single`` runs phases 1-2 and 6b only, ``--tools`` phases 1-2 and 6c,
-``--mesh`` phases 1-2 and 6d.
+``--mesh`` phases 1-2 and 6d, ``--aot`` phases 1-2 and 5e.
 
 The script imports nothing of JAX or of the JAX package ``islx``.
 """
@@ -2275,6 +2295,320 @@ def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
            "nms_checked": sorted(nms_shapes), "healthz": health,
            "launches": launches, "seconds": time.perf_counter() - t_phase}
     log(f"  serving launches {launches} in {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------- 5e
+
+AOT_BUCKET = (184, 144)           # serve-184s6's portrait 4:3 bucket
+NO_COMPILER = "#!/bin/sh\necho \"$0: no compiler on a warm leg\" >&2\nexit 1\n"
+
+
+def _timed(fn, spent):
+    """``fn``, adding the seconds of each call to ``spent["build"]``."""
+    def inner(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent["build"] += time.perf_counter() - t
+    return inner
+
+
+def aot_leg(cfg_path: str) -> int:
+    """One leg of phase 5e in a fresh process (``--aot-leg CFG``): imports
+    the package copy at ``cfg["root"]``, builds the serving pipeline on the
+    state files and thresholds it is given, with a MicroBatcher on ``cfg["aot_dir"]``
+    when set, and serves the 8 frames once (the first response, timed
+    from the process's launch: import, build, construction, first step)
+    and once more with every NMS mask call, and under int8 every conv_q
+    and quantize call, held against its plain version, and a third time
+    unwatched (a steady batch, timed). Writes its numbers
+    to ``cfg["out"]`` and the first batch's packed words beside it."""
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    root = os.path.abspath(cfg["root"])
+    sys.path.insert(0, root)
+    import islx_torch
+
+    if not os.path.abspath(islx_torch.__file__).startswith(root + os.sep):
+        raise SystemExit(f"aot leg: islx_torch from {islx_torch.__file__}, "
+                         f"not from {root}")
+    from islx_torch.core import weights as W
+    from islx_torch.core.config import HandConfig
+    from islx_torch.ops import _build
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.serve import MicroBatcher
+
+    t_import = time.time() - cfg["t_launch"]
+    spent, compiled = {"build": 0.0}, []
+    real_build = _build.build
+
+    def build(name):
+        fresh = not os.path.exists(_build.lib_path(name))
+        out = real_build(name)
+        if fresh:
+            compiled.append(name)
+        return out
+
+    _build.build = build
+    _build.load = _timed(_build.load, spent)
+    _build.install = _timed(_build.install, spent)
+    hb, wb = AOT_BUCKET
+    hand_cfg = HandConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in cfg["hand_cfg"].items()})
+    res = {"import_s": t_import}
+    t0 = time.perf_counter()
+    pipe = FusedPosePipeline(W.load(cfg["body"], "body25"),
+                             W.load(cfg["hand"], "hand"), hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    pipe.body.cfg = dataclasses.replace(pipe.body.cfg, **cfg["pose"])
+    batcher = MicroBatcher(pipe, max_batch=8, max_wait_ms=1000.0,
+                           target_h=hb, aot_dir=cfg["aot_dir"])
+    res["construction_s"] = time.perf_counter() - t0 - spent["build"]
+    res["aot_loaded"] = [list(k) for k in batcher.aot_loaded]
+    res["stats_before"] = batcher.stats()
+    before = spent["build"]
+    frames = np.load(cfg["frames"])
+    captured = []
+    step = pipe.device_step
+
+    def capture(frames, orig_hw=None, thre1=None):
+        out = step(frames, orig_hw, thre1)
+        captured.append(out.clone())    # the worker reads it in place
+        return out
+
+    pipe.device_step = capture
+    t1 = time.perf_counter()
+    try:
+        got = serve_batch(batcher, frames)
+        res["first_step_s"] = (time.perf_counter() - t1
+                               - (spent["build"] - before))
+        res["first_response_s"] = time.time() - cfg["t_launch"]
+        res["build_in_first_step_s"] = spent["build"] - before
+        res["launches_first"] = kernel_counts()
+        with watched_nms() as nms, (
+                watched_convs() if cfg["int8"]
+                else contextlib.nullcontext({})) as convs:
+            again = serve_batch(batcher, frames)
+        t1 = time.perf_counter()
+        steady = serve_batch(batcher, frames)
+        res["steady_step_s"] = time.perf_counter() - t1
+    finally:
+        batcher.close()
+    results, boxes, peaks = pipe.assemble(captured[0], 8)
+    if not all(same_results(r, results, boxes, peaks, pipe)
+               for r in (got, again, steady)):
+        raise SystemExit("aot leg: a served batch differs from its "
+                         "step's words")
+    np.save(cfg["out"] + ".npy", captured[0].cpu().numpy())
+    res.update(launches=kernel_counts(), nms_checked=nms["calls"],
+               convs_checked=convs.get("convs", 0),
+               quantizes_checked=convs.get("quantizes", 0),
+               people=sum(len(r.subset) for r in got),
+               hands=sum(len(r.hands) for r in got),
+               stats_after=batcher.stats())
+    res.update(build_s=spent["build"], compiled=compiled,
+               libraries=[{k: r[k] for k in ("name", "key", "compiler")}
+                          for r in _build.loaded()])
+    with open(cfg["out"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def copy_package(root: str) -> str:
+    """A copy of islx_torch under ``root`` with no build directory."""
+    shutil.copytree(os.path.join(HERE, "islx_torch"),
+                    os.path.join(root, "islx_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    return root
+
+
+def run_leg(name: str, work: str, cfg: dict, no_compiler: bool = False,
+            timeout: float = 600.0) -> dict:
+    """Run one leg of phase 5e in a fresh process; ``no_compiler`` puts an
+    ``nvcc`` and a ``g++`` that fail first on PATH and CUDA_HOME at an
+    empty toolkit, so that any compile raises -> the leg's numbers (and
+    ``packed``, its first batch's words)."""
+    env = dict(os.environ)
+    if no_compiler:
+        bin_dir = os.path.join(work, "nocc", "bin")
+        os.makedirs(bin_dir, exist_ok=True)
+        for cc in ("nvcc", "g++"):
+            path = os.path.join(bin_dir, cc)
+            with open(path, "w") as f:
+                f.write(NO_COMPILER)
+            os.chmod(path, 0o755)
+        env["PATH"] = bin_dir + os.pathsep + env.get("PATH", "")
+        env["CUDA_HOME"] = os.path.dirname(bin_dir)
+    out = os.path.join(work, f"{name}.json")
+    cfg_path = os.path.join(work, f"{name}.cfg.json")
+    cfg = dict(cfg, out=out, t_launch=time.time())
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                           "--aot-leg", cfg_path], env=env, cwd=cfg["root"],
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise SystemExit(f"warm starts: the {name} leg failed "
+                         f"(exit {proc.returncode})")
+    with open(out) as f:
+        res = json.load(f)
+    if os.path.exists(out + ".npy"):
+        res["packed"] = np.load(out + ".npy")
+    return res
+
+
+def warm_starts(hand_cfg, thre1=None) -> dict:
+    """Phase 5e: serve-184s6's first response in fresh processes, each on
+    a copy of the package without a build directory (module doc), at
+    phase 5b's thre1 (calibrated here as 5b does when not given). The
+    launches are the legs' own; this process only makes the references."""
+    from islx_torch.cli import export_programs
+    from islx_torch.core import aot
+    from islx_torch.core import weights as W
+    from islx_torch.core.config import HandConfig
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+
+    hb, wb = AOT_BUCKET
+    burst = bgr_frames(np.random.RandomState(3), 32, hb, wb)[:8]
+    bp, hp = parity_weights()
+    pipe = FusedPosePipeline(bp, hp, hand_cfg=hand_cfg,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    if thre1 is None:
+        thre1 = calibrate_people(pipe, burst, calibrate_thre1(
+            pipe, pipe.upload_frames(seeded_i420(np.random.RandomState(0),
+                                                 32, hb, wb)),
+            32, hb, wb, (hb, wb)))
+    pipe.body.cfg = dataclasses.replace(pipe.body.cfg, thre1=thre1,
+                                        thre2=-0.5)
+    # the int8 leg serves what the export CLI's --int8 artifact was made
+    # for: the ungated hand config and the default thre2
+    hand_q = HandConfig.production()
+    bq, hq = quantize_on(bp, hp, list(burst), hand_q, "cuda")
+    pipe_q = FusedPosePipeline(bq, hq, hand_cfg=hand_q,
+                               compute_dtype=torch.bfloat16, device="cuda")
+    pipe_q.body.cfg = dataclasses.replace(pipe_q.body.cfg, thre1=thre1)
+    want = pipe.device_step(burst, (hb, wb)).cpu().numpy()
+    want_q = pipe_q.device_step(burst, (hb, wb)).cpu().numpy()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="islx_aot_")
+    try:
+        paths = {k: os.path.join(work, f"{k}.pt")
+                 for k in ("body", "hand", "body_q", "hand_q")}
+        for k, state in zip(paths, (bp, hp, bq, hq)):
+            W.save_state(paths[k], state, "hand" if "hand" in k
+                         else "body25")
+        frames = os.path.join(work, "frames.npy")
+        np.save(frames, burst)
+        cold = copy_package(os.path.join(work, "cold"))
+        aot_dir, aot_q = (os.path.join(work, d) for d in ("aot", "aot_q"))
+        base = {"frames": frames, "aot_dir": None, "int8": False,
+                "body": paths["body"], "hand": paths["hand"],
+                "hand_cfg": dataclasses.asdict(hand_cfg),
+                "pose": {"thre1": thre1, "thre2": -0.5}}
+        legs = {"cold": run_leg("cold", work, dict(base, root=cold)),
+                "restart": run_leg("restart", work, dict(base, root=cold))}
+        # the export runs here, on the libraries this process loaded
+        # (phase 2's builds); its steps are not the path's launches
+        with uncounted():
+            t0 = time.perf_counter()
+            export_programs.export(pipe, aot_dir, 8, [AOT_BUCKET],
+                                   target_h=hb)
+            t1 = time.perf_counter()
+            export_programs.main(["--out", aot_q, "--batch", "8", "--orig",
+                                  f"{hb}x{wb}", "--target-h", str(hb),
+                                  "--int8", "--device", "cuda"])
+            exported = {"export_s": t1 - t0,
+                        "export_int8_s": time.perf_counter() - t1,
+                        "libraries": [
+                            lib["name"] for lib in aot.read_meta(
+                                os.path.join(aot_dir, os.listdir(aot_dir)[0])
+                            )["libraries"]]}
+        legs["warm"] = run_leg("warm", work, dict(
+            base, root=copy_package(os.path.join(work, "warm")),
+            aot_dir=aot_dir), no_compiler=True)
+        legs["warm_int8"] = run_leg("warm_int8", work, dict(
+            base, root=copy_package(os.path.join(work, "warm_int8")),
+            aot_dir=aot_q, int8=True, body=paths["body_q"],
+            hand=paths["hand_q"], hand_cfg=dataclasses.asdict(hand_q),
+            pose={"thre1": thre1}), no_compiler=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    key = [8, hb, wb, 1.0, 1.0, "bgr"]
+    checks = [
+        ("cold compiled nms_mask and grouping",
+         {"nms_mask", "grouping"} <= set(legs["cold"]["compiled"])),
+        ("restart compiled nothing", legs["restart"]["compiled"] == []),
+        ("warm legs compiled nothing",
+         legs["warm"]["compiled"] == legs["warm_int8"]["compiled"] == [])]
+    for name in ("warm", "warm_int8"):
+        leg = legs[name]
+        checks += [
+            (f"{name} loaded the key before traffic",
+             leg["aot_loaded"] == [key]),
+            (f"{name} counted no traffic before the first request",
+             leg["stats_before"]["requests"] == 0
+             and leg["stats_before"]["batches"] == 0),
+            (f"{name} loaded nothing in its first step",
+             leg["build_in_first_step_s"] == 0.0)]
+    ref = integer_planes(pipe, legs["cold"]["packed"], 8)
+    for name in ("restart", "warm"):
+        got = integer_planes(pipe, legs[name]["packed"], 8)
+        checks.append((f"{name}'s first response word-equal to cold's",
+                       all(np.array_equal(ref[k], got[k]) for k in ref)))
+    got = integer_planes(pipe_q, legs["warm_int8"]["packed"], 8)
+    ref_q = integer_planes(pipe_q, want_q, 8)
+    checks.append(("warm_int8's first response word-equal to this "
+                   "process's int8 step",
+                   all(np.array_equal(ref_q[k], got[k]) for k in ref_q)))
+    used = {n: {k for k, v in legs[n]["launches"].items() if v > 0}
+            for n in legs}
+    checks += [
+        ("every leg counted all six kernels",
+         all(set(legs[n]["launches"]) == set(ALL_KERNELS) for n in legs)),
+        ("no leg launched nms_first_k, paf_sample or label_components",
+         all(legs[n]["launches"][k] == 0 for n in legs
+             for k in ("nms_first_k", "paf_sample", "label_components"))),
+        ("every leg launched the same kernels as the cold leg",
+         used["restart"] == used["warm"] == used["cold"]
+         == {"nms_mask_rows"}),
+        ("warm_int8 launched nms_mask_rows, conv_q and quantize",
+         used["warm_int8"] == {"nms_mask_rows", "conv_q", "quantize"}),
+        ("every kernel call of the held batches equal to its plain version",
+         all(legs[n]["nms_checked"] == 1 for n in legs)
+         and legs["warm_int8"]["convs_checked"] > 0)]
+    failed = [what for what, ok in checks if not ok]
+    for name, leg in legs.items():
+        log(f"  {name}: first response {leg['first_response_s']:.2f} s "
+            f"after launch (import {leg['import_s']:.2f}, build "
+            f"{leg['build_s']:.2f}, construction "
+            f"{leg['construction_s']:.2f}, first step "
+            f"{leg['first_step_s']:.3f}, a steady batch "
+            f"{leg['steady_step_s']:.3f}); compiled {leg['compiled']}; "
+            f"launches {leg['launches']}")
+    log(f"  export (this process): bf16 {exported['export_s']:.2f} s, int8 "
+        f"(CLI) {exported['export_int8_s']:.2f} s; libraries "
+        f"{exported['libraries']}")
+    if failed:
+        raise SystemExit(f"warm starts: {failed}")
+    launches = {k: legs["warm"]["launches"][k]
+                + legs["warm_int8"]["launches"][k] for k in ALL_KERNELS}
+    res = {"bucket": list(AOT_BUCKET), "batch": 8, "thre1": thre1,
+           "legs": {n: {k: v for k, v in leg.items() if k != "packed"}
+                    for n, leg in legs.items()},
+           "export": exported, "launches": launches,
+           "cold_words_equal_this_process": int(
+               (legs["cold"]["packed"] == want).sum()),
+           "words": int(want.size), "checks": [w for w, _ in checks],
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  first responses word-equal (cold == restart == warm, warm "
+        f"int8 == this process's int8 step); warm launches {launches} in "
+        f"{res['seconds']:.1f} s")
     return res
 
 
@@ -4613,10 +4947,17 @@ def main(argv=None) -> int:
                       help="run phases 1-2 and 6d only: the multi-device "
                            "paths (data, spatial and pipeline parallel, the "
                            "tensor-parallel head, init_distributed)")
+    mode.add_argument("--aot", action="store_true",
+                      help="run phases 1-2 and 5e only: serving warm "
+                           "starts (cold, restart, warm and int8 warm legs "
+                           "in fresh processes)")
+    mode.add_argument("--aot-leg", metavar="CFG", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    if args.aot_leg:
+        return aot_leg(args.aot_leg)
     sys.path.insert(0, HERE)
     from islx_torch.core.config import HandConfig
     from islx_torch.ops import _build
@@ -4631,8 +4972,8 @@ def main(argv=None) -> int:
     names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label", "conv_q",
              "grouping")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        paths = list(pool.map(_build.build, names))   # a compiler a source
-    log(f"[2] build: {', '.join(os.path.basename(p) for p in paths)} from "
+        built = list(pool.map(_build.build, names))   # a compiler a source
+    log(f"[2] build: {', '.join(os.path.basename(r['path']) for r in built)} from "
         f"islx_torch/csrc in {time.perf_counter() - t0:.1f} s")
 
     def finish(result: dict) -> int:
@@ -4670,6 +5011,11 @@ def main(argv=None) -> int:
             "tensor-parallel head, init_distributed")
         return finish({"multi_device": multi_device(hand_cfg, hand_160),
                        "card": card,
+                       "seconds": time.perf_counter() - t_start})
+    if args.aot:
+        log("[5e] serving warm starts: cold, restart, warm and int8 warm "
+            "legs in fresh processes")
+        return finish({"warm_starts": warm_starts(hand_cfg), "card": card,
                        "seconds": time.perf_counter() - t_start})
 
     log("[3] kernels against their plain versions")
@@ -4781,6 +5127,10 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(records, ignore_errors=True)
 
+    log("[5e] serving warm starts: cold, restart, warm and int8 warm legs "
+        "in fresh processes")
+    aot = warm_starts(hand_cfg, serve["exact"]["thre1"])
+
     log("[6] reference-parity path, full width, f32")
     parity, body, frame = parity_path()
     parity_small_check()
@@ -4815,6 +5165,8 @@ def main(argv=None) -> int:
                     "label_components" if name == "cc_label" else name],
                 "mesh_launches": mesh["launches"][
                     "label_components" if name == "cc_label" else name],
+                "aot_launches": aot["launches"][
+                    "label_components" if name == "cc_label" else name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
                 "ms": bench["ms"], "plain_ms": bench["plain_ms"],
@@ -4840,7 +5192,8 @@ def main(argv=None) -> int:
               quant_rows)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
-        "training": train, "parity": parity, "single_image": single,
+        "training": train, "warm_starts": aot, "parity": parity,
+        "single_image": single,
         "tools": tool, "multi_device": mesh, "card": card,
         "seconds": time.perf_counter() - t_start}
     return finish(kernels)

@@ -3,7 +3,7 @@
     python -m islx_torch.cli.serve [--host 127.0.0.1] [--port 8008]
         [--body-weights W] [--hand-weights W] [--model-type body25|coco]
         [--max-batch 8] [--max-wait-ms 15] [--int8-after N]
-        [--mesh-data N] [--device cuda]
+        [--aot-dir DIR] [--mesh-data N] [--device cuda]
 
     curl -s -X POST --data-binary @image.jpg localhost:8008/pose
     curl -s localhost:8008/healthz
@@ -16,6 +16,10 @@ recorded int8 GO, or ``ISLX_INT8=1`` with or without ``--hand-weights``,
 gives ``--int8-after 256`` (``ISLX_INT8=0`` keeps bf16). Decoding POST
 bodies, and resizing frames that are not at their bucket's size, needs
 cv2. Without weights the nets run the port's seeded random init.
+``--aot-dir DIR`` warm-starts from the artifacts of ``python -m
+islx_torch.cli.export_programs``: each one that matches this server's
+pipeline has its kernel libraries installed and one step run at its key
+before the first request (:mod:`islx_torch.core.aot`).
 ``--mesh-data N`` shards each served batch over N devices (a data-parallel
 mesh of the first N visible GPUs; ``--max-batch`` must divide by N); the
 int8 swap builds its pipeline on the same mesh.
@@ -67,6 +71,11 @@ def main(argv=None):
     p.add_argument("--int8-after", type=int, default=None, metavar="N",
                    help="after N served frames, calibrate on the live "
                         "traffic and swap in int8 (W8A8) CPMs")
+    p.add_argument("--aot-dir", default=None, metavar="DIR",
+                   help="warm-start from the artifacts exported by "
+                        "`python -m islx_torch.cli.export_programs` "
+                        "(matching batch/resolution artifacts install their "
+                        "kernel libraries and step once before serving)")
     p.add_argument("--mesh-data", type=int, default=0, metavar="N",
                    help="shard each served micro-batch over N devices "
                         "(data-parallel mesh; needs --max-batch divisible "
@@ -98,7 +107,8 @@ def main(argv=None):
     server = PoseServer(pipe, args.host, args.port,
                         max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms,
-                        quantize_after=int8_after)
+                        quantize_after=int8_after,
+                        aot_dir=args.aot_dir)
     print(f"serving on http://{args.host}:{server.port}  "
           f"(POST /pose, GET /healthz)", flush=True)
     try:

@@ -32,3 +32,9 @@ _NAMES = [
 ]
 
 EXPRESSIONS = dict(enumerate(_NAMES))
+N_CLASSES = len(_NAMES)
+
+
+def expression(idx: int) -> str:
+    """The name of class ``idx``."""
+    return EXPRESSIONS[int(idx)]

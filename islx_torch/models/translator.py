@@ -70,6 +70,12 @@ def init_params(cfg: TranslatorConfig = TranslatorConfig(),
             for name, e in params.items()}
 
 
+def param_count(params: Params) -> int:
+    """The number of weights in a head's params."""
+    return sum(int(np.prod(v.shape)) for d in params.values()
+               for v in d.values())
+
+
 def save_npz(path: str, params: Params) -> None:
     """The head as an islx ``.npz`` checkpoint (``{layer}/{name}`` keys)."""
     flat = {f"{name}/{k}": np.asarray(v)

@@ -26,9 +26,25 @@ def enabled() -> bool:
     return not os.environ.get("ISLX_NO_NATIVE")
 
 
+def get_lib() -> ctypes.CDLL:
+    """The loaded grouping library, built at first use. Where islx returns
+    None after a failed build, this raises: there is no quiet fallback."""
+    return _build.load("grouping")
+
+
+def available() -> bool:
+    """Whether the grouping runs in C++ (islx's name): False under
+    ``ISLX_NO_NATIVE``, else the library is loaded (built at first use),
+    and a failed build raises."""
+    if not enabled():
+        return False
+    get_lib()
+    return True
+
+
 @functools.cache
 def _fn():
-    fn = _build.load("grouping").islx_assemble_batch
+    fn = get_lib().islx_assemble_batch
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

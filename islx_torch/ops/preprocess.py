@@ -24,3 +24,13 @@ def pad_normalize(img: torch.Tensor, stride: int = 8, pad_value: int = 128
     pd, pr = pad_amounts(img.shape[0], img.shape[1], stride)
     x = F.pad(img.float(), (0, 0, 0, pr, 0, pd), value=float(pad_value))
     return (x / 256.0 - 0.5)[None], (pd, pr)
+
+
+def pad_normalize_batch(imgs: torch.Tensor, stride: int = 8,
+                        pad_value: int = 128
+                        ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """[B,H,W,3] -> (f32 [B,H',W',3], (pad_down, pad_right)): the same
+    padding for the whole batch."""
+    pd, pr = pad_amounts(imgs.shape[1], imgs.shape[2], stride)
+    x = F.pad(imgs.float(), (0, 0, 0, pr, 0, pd), value=float(pad_value))
+    return x / 256.0 - 0.5, (pd, pr)

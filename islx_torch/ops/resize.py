@@ -72,6 +72,15 @@ def resize_cubic(img: torch.Tensor, h_out: int, w_out: int,
     return x
 
 
+def resize_by_factor(img: torch.Tensor, fy: float, fx: float,
+                     saturate_uint8: bool = False) -> torch.Tensor:
+    """``cv2.resize(img, (0, 0), fx=fx, fy=fy, INTER_CUBIC)``: the output
+    size rounded as cv2 rounds it (:func:`output_size`), then
+    :func:`resize_cubic`."""
+    return resize_cubic(img, output_size(img.shape[-3], fy),
+                        output_size(img.shape[-2], fx), saturate_uint8)
+
+
 # XLA's CPU program sums each dot of the batched crop resize over an
 # output's <= 4 taps (the other weights are zero) in one of three orders,
 # picked by the dot's shape: (rows, columns, contracted length) of its
@@ -90,15 +99,22 @@ def resize_cubic(img: torch.Tensor, h_out: int, w_out: int,
 #
 # The orders follow a rule (``_first_order``, ``_second_order``): the first
 # dot's by the frame width W mod 64 (W a multiple of 8, 3 channels, a crop
-# of at least 92 px, whatever the frame height), the second's by the crop
-# size. It fits every entry of the table below, and held at 32 shapes it
-# was not fitted on: W 64-88 and 440-648, frame heights 160, 200 and 240,
-# crops of 92, 128 and 368 px (tests/test_torch_crop_resize.py HELD_OUT).
-# Outside it (a crop under 92 px, a W off the multiples of 8, an unprobed
-# crop size) only the table's entries are known; any other shape sums as a
-# chain and warns (:func:`_sum_order`): a crop value there may round unlike
-# islx's. E.g. (168 columns, 40 long) sums as a chain at 46 rows and mod 4
-# at 92.
+# of at least 64 px), the second's by the crop size, both for frames of at
+# most 240 rows and 648 columns. It fits every entry of the table below
+# inside that region, and held at 38 shapes it was not fitted on: W 64-88
+# and 440-648, frame heights 48-240, crops of 64-368 px
+# (tests/test_torch_crop_resize.py HELD_OUT; the second dot's orders at
+# 64, 80 and 88 px were read at RULE_SIZES' shapes). Outside it only the
+# table's entries are known, and any other shape sums as a chain and warns
+# (:func:`_sum_order`): a crop value there may round unlike islx's. What
+# the probes found outside it: 46 px crops of 184-row frames, and odd
+# frame widths, sum in none of the three orders; even widths off the
+# multiples of 8 sum in one of them, by no rule found in W mod 64; frames
+# of 720 x 648 (184 px crops) and 368-720 x 880-1280 (184 px) sum in none
+# of them, while 720 x 648 at 160 px, 720 x 328 and 368 x 1280 at 368 px
+# keep the rule's orders: Eigen's blocking depends on all three lengths
+# of the dot. E.g. (168 columns, 40 long) sums as a chain at 46 rows and
+# mod 4 at 92.
 CHAIN, EVEN_ODD, MOD4 = "chain", "even_odd", "mod4"
 SUM_ORDER = {
     # first dot, (crop size, W * C, H): 48x48, 40x56, 48x64, 48x72 and
@@ -111,6 +127,8 @@ SUM_ORDER = {
     (276, 92, 64): EVEN_ODD, (276, 92, 72): EVEN_ODD,
     (276, 92, 96): EVEN_ODD, (480, 160, 48): EVEN_ODD,
     (552, 184, 48): CHAIN,
+    # islx's single-crop test (tests/test_ops.py): 46 px from 60x80
+    (46, 240, 60): CHAIN, (138, 46, 80): MOD4,
 }
 # The 184-row buckets, by width: the first dot's order, the same at 160 and
 # 184 px crops; the second dot sums even/odd at 160 px and as a chain at 184
@@ -131,21 +149,23 @@ del _order, _widths, _w
 # the rule: the first dot's order by W mod 64, the second's by crop size
 FIRST_BY_W64 = {0: CHAIN, 8: EVEN_ODD, 16: MOD4, 24: MOD4, 32: EVEN_ODD,
                 40: CHAIN, 48: MOD4, 56: MOD4}
-SECOND_BY_SIZE = {92: EVEN_ODD, 128: CHAIN, 160: EVEN_ODD, 184: CHAIN,
-                  368: MOD4}
-RULE_MIN_CROP = 92
+SECOND_BY_SIZE = {64: CHAIN, 80: MOD4, 88: EVEN_ODD, 92: EVEN_ODD,
+                  128: CHAIN, 160: EVEN_ODD, 184: CHAIN, 368: MOD4}
+RULE_MIN_CROP = 64
+RULE_MAX_H, RULE_MAX_W = 240, 648
 
 
 def _first_order(size: int, w: int, c: int, h: int):
     """The first dot's order by the rule, or None outside its region."""
-    if c == 3 and size >= RULE_MIN_CROP and w % 8 == 0:
+    if (c == 3 and size >= RULE_MIN_CROP and w % 8 == 0
+            and h <= RULE_MAX_H and w <= RULE_MAX_W):
         return FIRST_BY_W64[w % 64]
     return None
 
 
 def _second_order(size: int, c: int, w: int):
     """The second dot's order by the rule, or None outside its region."""
-    return SECOND_BY_SIZE.get(size) if c == 3 else None
+    return SECOND_BY_SIZE.get(size) if c == 3 and w <= RULE_MAX_W else None
 
 
 def _sum_order(shape, rule=None) -> str:
@@ -286,3 +306,17 @@ def dynamic_crop_resize_batch(frames: torch.Tensor, fidx: torch.Tensor,
     if saturate_uint8:        # + 0: XLA's clip gives +0 for a -0 (rint(-0.3))
         x = torch.clamp(torch.round(x), 0.0, 255.0) + 0.0
     return x
+
+
+def dynamic_crop_resize(img: torch.Tensor, x0, y0, w, out_size: int,
+                        saturate_uint8: bool = True) -> torch.Tensor:
+    """One crop: img [H,W,C], ints or 0-d tensors x0, y0, w -> [out,out,C]
+    f32, ``img[y0:y0+w, x0:x0+w]`` cv2-cubic resized (islx's
+    ``dynamic_crop_resize``). It is :func:`dynamic_crop_resize_batch` over
+    a batch of one crop, so it sums in the same probed orders."""
+    def one(v):
+        return torch.as_tensor(v, dtype=torch.int32,
+                               device=img.device).reshape(1)
+
+    return dynamic_crop_resize_batch(img[None], one(0), one(x0), one(y0),
+                                     one(w), out_size, saturate_uint8)[0]

@@ -74,15 +74,26 @@ class MicroBatcher:
     port holds no per-bucket device state, so the drop only bounds the
     shapes the int8 swap warms.
     After an int8 swap, ``calibrated_on`` holds the frames it calibrated
-    on (bucket-sized u8 BGR, in serving order)."""
+    on (bucket-sized u8 BGR, in serving order).
+
+    ``aot_dir`` (islx's warm start): the matching artifacts of
+    ``python -m islx_torch.cli.export_programs`` are loaded before the
+    constructor returns (:func:`islx_torch.core.aot.preload_dir`: their
+    kernel libraries installed, one step at each key on zero frames), and
+    their keys kept in ``aot_loaded``. The worker thread loads them before
+    it takes a request, because PyTorch keeps its cuDNN and cuBLAS handles
+    a thread: a step on the constructor's thread would leave their
+    creation to the first request. Those steps are not traffic: no
+    request, batch or calibration frame counts them."""
 
     _CALIB_KEEP = 32      # calibration sample cap (frames kept in memory)
     _CALIB_CHUNK = 8      # frames a calibration forward (device memory)
 
     def __init__(self, pipe, max_batch: int = 8, max_wait_ms: float = 15.0,
                  target_h: int = 184, quantize_after: Optional[int] = None,
-                 max_resolutions: int = 8):
+                 max_resolutions: int = 8, aot_dir: Optional[str] = None):
         self.pipe = pipe
+        self.aot_loaded: list = []
         self.max_batch = int(max_batch)
         self.max_wait = max_wait_ms / 1000.0
         self.target_h = target_h
@@ -106,8 +117,16 @@ class MicroBatcher:
         self._latencies_ms: "deque[float]" = deque(maxlen=2048)
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._preload_error: Optional[Exception] = None
+        preloaded = threading.Event()
+        self._worker = threading.Thread(target=self._run,
+                                        args=(aot_dir, preloaded),
+                                        daemon=True)
         self._worker.start()
+        preloaded.wait()
+        if self._preload_error is not None:
+            self.close()
+            raise self._preload_error
 
     def submit(self, frame_bgr_u8: np.ndarray) -> "Future[PoseResult]":
         """Non-blocking: returns a future with the frame's PoseResult."""
@@ -155,7 +174,21 @@ class MicroBatcher:
             if not fut.done():
                 fut.set_exception(RuntimeError("MicroBatcher closed"))
 
-    def _run(self) -> None:
+    def _run(self, aot_dir, preloaded) -> None:
+        # the artifacts' warm-up steps run here, on the thread that serves
+        # (the constructor waits for them and re-raises what they raised)
+        try:
+            if aot_dir:
+                from islx_torch.core import aot
+
+                with torch.inference_mode():
+                    self.aot_loaded = aot.preload_dir(self.pipe, aot_dir,
+                                                      verbose=True)
+        except Exception as exc:
+            self._preload_error = exc
+            return
+        finally:
+            preloaded.set()
         pending = []   # spilled other-resolution requests, served first
         while not self._stop.is_set():
             if pending:

@@ -47,10 +47,12 @@ class PoseServer:
 
     def __init__(self, pipe, host: str = "127.0.0.1", port: int = 8008,
                  max_batch: int = 8, max_wait_ms: float = 15.0,
-                 request_timeout_s: float = 120.0, quantize_after=None):
+                 request_timeout_s: float = 120.0, quantize_after=None,
+                 aot_dir=None):
         self.batcher = MicroBatcher(pipe, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms,
-                                    quantize_after=quantize_after)
+                                    quantize_after=quantize_after,
+                                    aot_dir=aot_dir)
         self._timeout = request_timeout_s
         server = self
 

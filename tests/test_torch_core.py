@@ -327,8 +327,10 @@ def test_int8_gate_builds_quantized_pipelines(monkeypatch, tmp_path):
 
 
 def test_build_rebuilds_on_a_changed_header(monkeypatch, tmp_path):
-    """A kernel library is reused while it is newer than its source and
-    every csrc header, and rebuilt once either is newer."""
+    """A kernel library is keyed by the bytes of its source and of every
+    csrc header: it is reused while both are unchanged, whatever their
+    times, rebuilt once either changes, and an earlier build is reused
+    when the sources come back to what it was built from."""
     from islx_torch.ops import _build
 
     csrc, build = tmp_path / "csrc", tmp_path / "build"
@@ -336,30 +338,32 @@ def test_build_rebuilds_on_a_changed_header(monkeypatch, tmp_path):
     (csrc / "k.cu").write_text('#include "s.cuh"\n')
     (csrc / "s.cuh").write_text("\n")
     log = tmp_path / "log"
+    log.write_text("")
     fake = tmp_path / "nvcc"       # writes its -o file, logs each build
-    fake.write_text('#!/bin/sh\necho built >> "%s"\nwhile [ $# -gt 0 ]; do '
+    fake.write_text('#!/bin/sh\n[ "$1" = --version ] && exit 0\n'
+                    'echo built >> "%s"\nwhile [ $# -gt 0 ]; do '
                     '[ "$1" = -o ] && echo so > "$2"; shift; done\n' % log)
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "CSRC", str(csrc))
     monkeypatch.setattr(_build, "BUILD", str(build))
     monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
 
-    def builds(touch=None):
-        if touch is not None:
-            os.utime(csrc / touch, (2e9, 2e9))
-        out = _build.build("k")
-        os.utime(out, (1e9, 1e9))  # the library's time, before any touch
+    def builds(edit=None, text="\n"):
+        if edit is not None:
+            (csrc / edit).write_text(text)
+        _build.build("k")
         return len(log.read_text().splitlines())
 
-    for f in ("k.cu", "s.cuh"):
-        os.utime(csrc / f, (5e8, 5e8))
     assert builds() == 1
-    assert builds() == 1           # newer than both: reused
-    assert builds("s.cuh") == 2    # a header changed: rebuilt
-    os.utime(csrc / "s.cuh", (5e8, 5e8))
-    assert builds() == 2
-    assert builds("k.cu") == 3
-    assert sorted(os.listdir(build)) == ["libk.so"]
+    assert builds() == 1           # same bytes: reused
+    for f in ("k.cu", "s.cuh"):    # newer times, same bytes: reused
+        os.utime(csrc / f, (2e9, 2e9))
+    assert builds() == 1
+    assert builds("s.cuh", "// v2\n") == 2    # a header changed: rebuilt
+    assert builds("s.cuh", "\n") == 2         # back: the first build
+    assert builds("k.cu", '#include "s.cuh"\n// v2\n') == 3
+    libs = sorted(f for f in os.listdir(build) if f.endswith(".so"))
+    assert len(libs) == 3 and all(f.startswith("libk-") for f in libs)
 
 
 def test_true_f32_holds_while_any_thread_is_inside():

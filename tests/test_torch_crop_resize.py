@@ -51,15 +51,17 @@ SHAPES = [(48, 48, 92), (48, 48, 160), (48, 48, 184), (40, 56, 46),
           (184, 144, 160), (184, 144, 184),
           (184, 328, 160), (184, 328, 184), (184, 104, 160), (184, 104, 184),
           (184, 184, 160), (184, 184, 184), (184, 248, 160), (184, 248, 184),
-          (184, 280, 160), (184, 280, 184)]
+          (184, 280, 160), (184, 280, 184),
+          # islx's single-crop test (tests/test_ops.py), 46 px from 60x80
+          (60, 80, 46)]
 # every other 184-row bucket a server meets (``bucket_for`` at target_h 184:
 # 96 to 432 wide, 1:2 portrait to 21:9) at both crop sizes
 BUCKETS = [(184, w, size) for w in range(96, 433, 8) for size in (160, 184)
            if (184, w, size) not in SHAPES]
 # shapes the sum-order rule (first dot by W mod 64, second by crop size)
 # was not fitted on, each probed before it was adopted: widths beyond the
-# buckets (64-88, 440-648), frame heights 160, 200 and 240, crops of 92,
-# 128 and 368 px; none of them is in SUM_ORDER
+# buckets (64-88, 440-648), frame heights 48-240, crops of 64-368 px;
+# none of them is in SUM_ORDER
 HELD_OUT = [(184, 440, 160), (184, 464, 184), (184, 488, 160),
             (184, 512, 184), (184, 544, 160), (184, 648, 184),
             (184, 88, 160), (184, 64, 184), (184, 72, 160), (184, 80, 184),
@@ -69,7 +71,13 @@ HELD_OUT = [(184, 440, 160), (184, 464, 184), (184, 488, 160),
             (184, 144, 128), (184, 256, 128), (184, 328, 368),
             (184, 144, 368), (184, 200, 368), (184, 144, 92),
             (184, 328, 92), (184, 104, 92), (184, 256, 92), (184, 96, 128),
-            (184, 96, 368), (184, 584, 184), (200, 328, 160)]
+            (184, 96, 368), (184, 584, 184), (200, 328, 160),
+            (160, 200, 64), (240, 256, 80), (184, 440, 88), (184, 256, 64),
+            (200, 328, 80), (48, 72, 88)]
+# the shapes the rule's second-dot orders at 64, 80 and 88 px were read
+# at (the first dot's by W mod 64 held at each); not in SUM_ORDER
+RULE_SIZES = [(48, 48, 64), (48, 64, 64), (184, 144, 64), (48, 48, 80),
+              (184, 144, 80), (184, 328, 80), (48, 48, 88), (184, 144, 88)]
 ORDERS = (TR.CHAIN, TR.EVEN_ODD, TR.MOD4)
 _jitted = jax.jit(JR.dynamic_crop_resize_batch, static_argnums=(5, 6))
 
@@ -115,7 +123,8 @@ def probe_orders(h, w, size) -> list:
     return found
 
 
-@pytest.mark.parametrize("h,w,size", SHAPES + BUCKETS + HELD_OUT)
+@pytest.mark.parametrize("h,w,size",
+                         SHAPES + BUCKETS + HELD_OUT + RULE_SIZES)
 def test_crop_resize_word_equal_to_islx_jitted(h, w, size):
     frames, boxes = _inputs(h, w, size)
     tb = [torch.from_numpy(b) for b in boxes]
@@ -147,7 +156,7 @@ def test_rule_fits_every_table_entry():
     """The sum-order rule gives the table's order at every entry inside its
     region (first dot: 3 channels, W a multiple of 8, a crop of >= 92 px;
     second dot: a crop size it names), and the held-out shapes are outside
-    the table."""
+    the table and inside the rule."""
     fitted = 0
     for (rows, cols, k), order in TR.SUM_ORDER.items():
         if rows == 3 * cols:                      # second dot
@@ -159,8 +168,9 @@ def test_rule_fits_every_table_entry():
         if rule is not None:
             assert rule == order, (rows, cols, k)
             fitted += 1
-    assert fitted == len(TR.SUM_ORDER) - 2   # (46,168,40), (138,46,56)
-    for h, w, size in HELD_OUT:
+    # (46,168,40), (138,46,56), (46,240,60), (138,46,80): 46 px crops
+    assert fitted == len(TR.SUM_ORDER) - 4
+    for h, w, size in HELD_OUT + RULE_SIZES:
         assert (size, w * 3, h) not in TR.SUM_ORDER
         assert TR._first_order(size, w, 3, h) is not None
         assert TR._second_order(size, 3, w) is not None
@@ -177,6 +187,22 @@ def test_unprobed_shape_warns():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         TR.dynamic_crop_resize_batch(frames[:, :, :184], *box, 160)
+
+
+@pytest.mark.parametrize("h,w,size", [(720, 1280, 368), (720, 648, 184),
+                                      (368, 1280, 184), (184, 97, 92),
+                                      (184, 144, 46)])
+def test_shapes_outside_the_rule_warn(h, w, size):
+    """Shapes where no order of the three gives islx's words (probed:
+    frames over 240 rows or 648 columns, an odd width, a 46 px crop of a
+    184-row frame) are outside the rule, so they warn."""
+    assert (TR._first_order(size, w, 3, h) is None
+            or TR._second_order(size, 3, w) is None)
+    frames = torch.zeros(1, h, w, 3, dtype=torch.uint8)
+    box = [torch.zeros(1, dtype=torch.int32)] * 3 + [
+        torch.full((1,), 9, dtype=torch.int32)]
+    with pytest.warns(UserWarning, match="no probed summation order"):
+        TR.dynamic_crop_resize_batch(frames, *box, size)
 
 
 def test_sum_orders_cover_both_dots_of_each_shape():
