@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero and the last line is never printed):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile the five CUDA kernel sources from islx_torch/csrc (one
-   nvcc a source, sm_90a) and the C++ grouping (g++), all started
-   together;
+2. build: compile the six CUDA kernel sources from islx_torch/csrc (one
+   nvcc a source, sm_90a) and the two C++ host sources, the grouping and
+   the image decoder (g++), all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (masks, indices, labels and ok bits bit-equal),
    with median times over 20 launches beside the bound; the NMS mask on
@@ -29,7 +29,12 @@ Phases (any failure exits non-zero and the last line is never printed):
    (TIMED_CONVS: the dominant 7x7, a hand-trunk 3x3, a BODY_25 dense-block
    3x3 and conv1_1's patches) single and back to back beside its bound
    and torch._int_mm's GEMM; the activation quantize kernel bit-equal at
-   the int8 step's input shapes, in patch mode too, timed;
+   the int8 step's input shapes, in patch mode too, timed; the u8
+   bicubic resize (resize_u8, cv2's INTER_CUBIC) bit-equal at camera
+   frames to their buckets (640x480, 1280x720, 1920x1080, 320x240, a
+   portrait 720x1280), the calibration's 184x328 -> 184x184 and a ragged
+   shape, each timed beside its bound and F.interpolate(bicubic) on the
+   f32 cast;
 4. fused pose step at full width (BODY_25 + hand CPM, bf16, seeded random
    weights): B=192 frames at the 184x144 bucket from I420, for the gated
    hand config (184 px, 6 stages) and for 160 px / 5 stages; the launch
@@ -63,7 +68,16 @@ Phases (any failure exits non-zero and the last line is never printed):
    calls word for word against its plain version, and is word-equal to a
    pipeline quantized directly on the stored calibration frames; the NMS
    mask calls of the served batches held bit for bit against the plain
-   version at every served shape; GET /healthz over HTTP;
+   version at every served shape; GET /healthz over HTTP; POST bodies
+   over HTTP from 4 clients on the int8 pipeline: tests/decode_fixtures.json's
+   JPEGs and PNGs and a 640x480 and a 1280x720 JPEG, decoded without cv2
+   to the pixels cv2 gave (sha256), each answered 200 and equal to a
+   direct step on its frame resized by the CPU plain version, each served
+   batch's frames (resized on the card) equal to the plain version's and
+   its integer planes to a direct step's; resize_u8 counted from 0 over
+   the POSTs; the host ms a body to decode, the upload and resize ms of a
+   B=8 batch of 720p frames, and a served burst of 8 720p JPEG bodies'
+   wall;
 5c. dataset extraction (islx_torch.isl.extract) at full width from
    memory: 48 seeded 184x328 frames, augmentation on (the card's rotated
    frames word-equal to the CPU's), the serving phase's weights and
@@ -116,6 +130,8 @@ Phases (any failure exits non-zero and the last line is never printed):
    on 8 frames of the 184x328 bucket (each result == a direct fused step,
    or a body step -> detect_hand_boxes -> from_frames; every NMS mask
    launch bit-equal; the split crops == the CPU's words; ms per call);
+   fused ImagePose on the decoded 1280x720 JPEG fixture (one resize_u8
+   launch; == a direct step on its plain resize);
    ImagePose with int8 CPMs (one call's conv_q and quantize calls held
    word for word; ms per call); BatchedBodyPipeline alone at B=192 in the
    184x144 bucket (integer planes == phase 4's fused step's body half;
@@ -1139,6 +1155,82 @@ def check_quantize() -> list:
     return rows
 
 
+# phase 3's resize shapes, (B, source H, W, out H, W): camera frames to
+# their 184-row buckets (4:3, 16:9 at 720p and 1080p, QVGA, a portrait
+# 720p), the int8 swap's calibration square from a 184x328 bucket, and a
+# ragged one
+RESIZE_CASES = [(8, 480, 640, 184, 248), (8, 720, 1280, 184, 328),
+                (8, 1080, 1920, 184, 328), (8, 240, 320, 184, 248),
+                (8, 1280, 720, 184, 104), (8, 184, 328, 184, 184),
+                (3, 97, 131, 61, 203)]
+
+
+def resize_bound(b, h, w, oh, ow) -> tuple:
+    """The bicubic resize's bound: the source bytes its taps touch, read
+    once in 32-byte sectors (the rows the vertical taps name; in each, the
+    sectors that hold a column the horizontal taps name), each output byte
+    written once, and the taps' 32 bytes an output row and column; the f32
+    operations of a two-pass resize (7 a tap sum: a multiply and three
+    FMAs) over the rows read and then the output rows."""
+    from islx_torch.ops.resize_u8 import taps
+
+    rows = np.unique(taps(h, oh)[0]).astype(np.int64)
+    cols = np.unique(taps(w, ow)[0]).astype(np.int64)
+    col_bytes = (cols[:, None] * 3 + np.arange(3)).ravel()
+    # sectors a row's columns touch, by the row's first byte mod 32
+    sectors = np.array([len(np.unique((p + col_bytes) // 32))
+                        for p in range(32)])
+    first = (np.arange(b)[:, None] * h + rows[None]) * w * 3 % 32
+    bytes_ = (32 * int(sectors[first].sum()) + b * oh * ow * 3
+              + 32 * (oh + ow))
+    ops = b * 3 * 7 * (len(rows) * ow + oh * ow)
+    return bound(bytes_, ops)
+
+
+def check_resize_u8() -> list:
+    """The bicubic resize kernel bit-equal to resize_u8_plain on the card,
+    one launch a call, at RESIZE_CASES, each timed beside its bound, the
+    plain version and F.interpolate(mode="bicubic") on the f32 cast (the
+    nearest library call: it neither rounds to u8 nor follows cv2's
+    arithmetic)."""
+    import torch.nn.functional as F
+
+    from islx_torch.ops import resize_u8 as RZ
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for b, h, w, oh, ow in RESIZE_CASES:
+        x = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        before = RZ.resize_u8.launches
+        got = RZ.resize_u8(x, oh, ow)
+        torch.cuda.synchronize()
+        want = RZ.resize_u8_plain(x, oh, ow)
+        err = int((got.int() - want.int()).abs().max())
+        if err or RZ.resize_u8.launches != before + 1:
+            raise SystemExit(
+                f"resize_u8 differs from its plain version at {b}x{h}x{w} "
+                f"-> {oh}x{ow}: {int((got != want).sum())} bytes apart (max "
+                f"{err}), {RZ.resize_u8.launches - before} launches")
+        xf = x.permute(0, 3, 1, 2).float()
+        bound_ms, by = resize_bound(b, h, w, oh, ow)
+        row = {"shape": [b, h, w, 3], "out": [oh, ow], "bit_equal": True,
+               "max_abs_err": err,
+               "ms": cuda_ms(lambda: RZ.resize_u8(x, oh, ow)),
+               "stream_ms": stream_ms(lambda: RZ.resize_u8(x, oh, ow)),
+               "plain_ms": cuda_ms(lambda: RZ.resize_u8_plain(x, oh, ow),
+                                   reps=5),
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": cuda_ms(lambda: F.interpolate(
+                   xf, size=(oh, ow), mode="bicubic", align_corners=False))}
+        rows.append(row)
+        log(f"  resize_u8 {b}x{h}x{w} -> {oh}x{ow}: bit-equal, kernel "
+            f"{row['ms']:.4f} ms, back to back {row['stream_ms']:.4f}, "
+            f"plain {row['plain_ms']:.4f} ms, F.interpolate (f32) "
+            f"{row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    return rows
+
+
 def seeded_i420(rng, b: int, hb: int, wb: int) -> np.ndarray:
     """Seeded I420 frames [b*hb*wb*3/2] u8: smooth luma + noise, chroma."""
     yy, xx = np.mgrid[0:hb, 0:wb]
@@ -1846,11 +1938,13 @@ KERNELS = (("nms_mask_rows", "islx_torch.ops.nms_mask"),
            ("paf_sample", "islx_torch.ops.paf_sample"),
            ("label_components", "islx_torch.ops.cc_label"),
            ("conv_q", "islx_torch.ops.conv_q"),
-           ("quantize", "islx_torch.ops.conv_q"))
+           ("quantize", "islx_torch.ops.conv_q"),
+           ("resize_u8", "islx_torch.ops.resize_u8"))
 
 
 def kernel_counts(names=None) -> dict:
-    """The launch counts of the kernel wrappers (all six by default)."""
+    """The launch counts of the kernel wrappers (all of KERNELS by
+    default)."""
     import importlib
 
     return {name: getattr(importlib.import_module(mod), name).launches
@@ -2271,7 +2365,7 @@ def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
         f"{one}; its {swap['words']} words equal a directly quantized "
         f"pipeline's ({swap['people']} people, {swap['hands']} hands)")
 
-    # (d) HTTP, on the int8 pipeline (GET only: no cv2 to decode a POST)
+    # (d) HTTP, on the int8 pipeline: GET /healthz
     server = PoseServer(b.pipe, port=0, max_batch=8)
     server.start()
     try:
@@ -2287,14 +2381,232 @@ def serving(hand_cfg, swap_deadline_s: float = 120.0) -> dict:
         raise SystemExit(f"serving: /healthz gave {health}")
     log(f"  GET /healthz over HTTP: {health}")
     launches = serve_counts()
+    # (e) POST bodies over HTTP on the int8 pipeline: decoded without cv2,
+    # resized on the card
+    post = post_bodies(b.pipe)
+    launches["resize_u8"] = post["resize_u8_launches"]
     for k, v in launches.items():
         if v <= 0:
             raise SystemExit(f"serving: {k} never launched")
     res = {"hand": f"{side}px/s{stages}", "exact": exact, "load": load,
            "grouping": grouping, "profiled_batch": profiled, "swap": swap,
            "nms_checked": sorted(nms_shapes), "healthz": health,
-           "launches": launches, "seconds": time.perf_counter() - t_phase}
+           "post": post, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
     log(f"  serving launches {launches} in {res['seconds']:.1f} s")
+    return res
+
+
+def decode_fixtures() -> dict:
+    """tests/decode_fixtures.json: name -> (body bytes, the shape and sha256
+    of cv2.imdecode's pixels, recorded on a machine with cv2)."""
+    import base64
+
+    with open(os.path.join(HERE, "tests", "decode_fixtures.json")) as f:
+        fixtures = json.load(f)
+    return {name: (base64.b64decode(fx["data"]), fx["shape"], fx["sha256"])
+            for name, fx in fixtures.items()}
+
+
+def http_post(port: int, body: bytes):
+    """POST /pose -> (status, JSON reply)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/pose", data=body,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def served_reference(pipe, frame, max_batch):
+    """What the server must answer for a decoded frame: the frame resized
+    to its bucket by the CPU plain version, one direct step (the batch
+    filled with copies of it), assembled and scaled back to the frame's
+    coordinates as the batcher does -> (candidate, subset, hands)."""
+    from islx_torch.ops.resize_u8 import resize_u8_plain
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    h0, w0 = frame.shape[:2]
+    hb, wb = bucket_for(h0, w0, target_h=184)
+    small = (frame if (h0, w0) == (hb, wb) else resize_u8_plain(
+        torch.from_numpy(frame), hb, wb)[0].numpy())
+    packed = pipe.device_step(np.repeat(small[None], max_batch, 0),
+                              (h0, w0))
+    results, boxes, peaks = pipe.assemble(packed, max_batch)
+    cand, subset = results[0]
+    sy, sx = h0 / hb, w0 / wb
+    cand = cand.copy()
+    cand[:, 0] *= sx
+    cand[:, 1] *= sy
+    return cand, subset, pipe.hands_for_frame(boxes, peaks, 0, sy, sx), small
+
+
+def post_bodies(pipe, clients: int = 4, reps: int = 5) -> dict:
+    """Phase 5b (e): the decode fixtures (small JPEGs and PNGs of each kind,
+    a 640x480 and a 1280x720 JPEG) decoded by serve/decode.py to the pixels
+    cv2 gave (sha256), then POSTed once each over HTTP from ``clients``
+    threads to a PoseServer on ``pipe`` (max_batch 8): every reply 200 and
+    equal to served_reference (the frame resized by the CPU plain version;
+    integers word-equal, scores too), every served batch's frames equal to
+    the plain version's resize, and its packed integer planes to a direct
+    step's on them. Timed: the host ms a body to decode, the upload ms and
+    the resize kernel's ms of a B=8 batch of 720p frames, and the wall of a
+    served burst of 8 720p bodies (POSTed at once from 8 threads, one
+    batch). resize_u8's launches are counted from 0 over the POSTs."""
+    import hashlib
+
+    from islx_torch.ops import resize_u8 as RZ
+    from islx_torch.pipeline.batch_pose import FusedPosePipeline
+    from islx_torch.serve import PoseServer
+    from islx_torch.serve.decode import decode
+
+    t_step = time.perf_counter()
+    bodies = decode_fixtures()
+    frames, decode_ms = {}, {}
+    for name, (data, shape, digest) in bodies.items():
+        t0 = time.perf_counter()
+        img = decode(data)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        if (img is None or list(img.shape) != shape
+                or hashlib.sha256(img.tobytes()).hexdigest() != digest):
+            raise SystemExit(f"serving: {name} does not decode to cv2's "
+                             f"pixels ({None if img is None else img.shape})")
+        frames[name] = img
+    warm = []
+    for _ in range(5):                         # the library loaded
+        t0 = time.perf_counter()
+        decode(bodies["camera_1280x720"][0])
+        warm.append((time.perf_counter() - t0) * 1e3)
+    decode_ms["camera_1280x720_warm"] = statistics.median(warm)
+    want, smalls = {}, {}
+    with uncounted():
+        for name, img in frames.items():
+            *want[name], smalls[name] = served_reference(pipe, img, 8)
+
+    server = PoseServer(pipe, port=0, max_batch=8, max_wait_ms=20.0)
+    real_step = FusedPosePipeline.device_step
+    served = []
+
+    def recorded(self, batch, orig_hw=None, thre1=None):
+        out = real_step(self, batch, orig_hw, thre1)
+        served.append((batch.cpu().numpy(), orig_hw, out.cpu().numpy()))
+        return out
+
+    names = list(bodies)
+    replies = {}
+
+    def client(i):
+        for name in names[i::clients]:
+            replies[name] = http_post(server.port, bodies[name][0])
+
+    server.start()
+    RZ.resize_u8.launches = 0           # the POST path's run starts here
+    FusedPosePipeline.device_step = recorded
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        FusedPosePipeline.device_step = real_step
+    launches = RZ.resize_u8.launches
+    try:
+        bad = [n for n in names if replies.get(n, (None,))[0] != 200]
+        if bad:
+            raise SystemExit(f"serving: POST of {bad} answered "
+                             f"{[replies.get(n) for n in bad]}")
+        for name in names:
+            r = replies[name][1]
+            cand, subset, hands = want[name]
+            got = (np.array(r["candidate"], np.float64).reshape(-1, 4),
+                   np.array(r["subset"], np.float64).reshape(
+                       -1, subset.shape[1]),
+                   [np.array(h, np.int64) for h in r["hands"]])
+            if not same_pose(got, (cand, subset, hands)):
+                raise SystemExit(f"serving: the reply to {name} differs "
+                                 f"from a direct step on its frame resized "
+                                 f"by the CPU plain version")
+        by_shape = {}
+        for name, small in smalls.items():
+            by_shape.setdefault(small.shape, []).append(small)
+        for batch, orig_hw, packed in served:
+            refs = by_shape[batch.shape[1:]]
+            if not all(any(np.array_equal(row, ref) for ref in refs)
+                       for row in batch):
+                raise SystemExit(f"serving: a served {batch.shape} batch "
+                                 f"holds a frame unlike the plain version's "
+                                 f"resize")
+            with uncounted():
+                direct = pipe.device_step(batch, orig_hw).cpu().numpy()
+            w_planes = integer_planes(pipe, direct, len(batch))
+            g_planes = integer_planes(pipe, packed, len(batch))
+            apart = [k for k in w_planes
+                     if not np.array_equal(w_planes[k], g_planes[k])]
+            if apart:
+                raise SystemExit(f"serving: a served batch's integer "
+                                 f"planes {apart} differ from a direct "
+                                 f"step's")
+
+        # the numbers: decode, upload, resize and a served 720p burst
+        cam = bodies["camera_1280x720"][0]
+        host = np.stack([frames["camera_1280x720"]] * 8)
+        up = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x8 = torch.from_numpy(host).to("cuda")
+            torch.cuda.synchronize()
+            up.append((time.perf_counter() - t0) * 1e3)
+        with uncounted():
+            resize_ms = cuda_ms(lambda: RZ.resize_u8(x8, 184, 328))
+        walls = []
+        before = server.batcher.stats()["batches"]
+        for _ in range(reps):
+            out = [None] * 8
+
+            def one(i):
+                out[i] = http_post(server.port, cam)
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if any(o is None or o[0] != 200 for o in out):
+                raise SystemExit("serving: a 720p burst POST failed")
+        batches = server.batcher.stats()["batches"] - before
+    finally:
+        server.close()
+    res = {"bodies": len(names), "clients": clients, "all_200": True,
+           "word_equal": True, "served_batches": len(served),
+           "batches_checked": len(served), "resize_u8_launches": launches,
+           "decode_ms": decode_ms,
+           "upload_ms_b8_720p": statistics.median(up),
+           "upload_ms_b8_720p_range": [min(up), max(up)],
+           "resize_ms_b8_720p": resize_ms,
+           "burst_b8_720p_wall_ms": statistics.median(walls),
+           "burst_b8_720p_wall_ms_range": [min(walls), max(walls)],
+           "burst_batches": batches, "bursts": reps,
+           "seconds": time.perf_counter() - t_step}
+    log(f"  POST: {len(names)} bodies from {clients} clients, all 200, each "
+        f"reply == a direct step on its frame resized by the plain version "
+        f"({len(served)} served batches, integer planes word-equal; "
+        f"resize_u8 launched {launches} times); decode 720p "
+        f"{decode_ms['camera_1280x720_warm']:.2f} ms (host), 640x480 "
+        f"{decode_ms['camera_640x480']:.2f} ms; B=8 720p upload "
+        f"{res['upload_ms_b8_720p']:.2f} ms, resize {resize_ms:.4f} ms; a "
+        f"served burst of 8 720p JPEG bodies {res['burst_b8_720p_wall_ms']:.1f}"
+        f" ms wall (median of {reps}; {min(walls):.1f}-{max(walls):.1f}; "
+        f"{batches} batches); {res['seconds']:.1f} s")
     return res
 
 
@@ -2569,7 +2881,7 @@ def warm_starts(hand_cfg, thre1=None) -> dict:
     used = {n: {k for k, v in legs[n]["launches"].items() if v > 0}
             for n in legs}
     checks += [
-        ("every leg counted all six kernels",
+        ("every leg counted every kernel",
          all(set(legs[n]["launches"]) == set(ALL_KERNELS) for n in legs)),
         ("no leg launched nms_first_k, paf_sample or label_components",
          all(legs[n]["launches"][k] == 0 for n in legs
@@ -2970,7 +3282,8 @@ def extraction(hand_cfg, records_to: str) -> dict:
     launches = kernel_counts()
     res["launches"] = launches
     res["checked"] = checked
-    zero = [k for k, v in launches.items() if v <= 0]
+    # its frames come at their bucket size: no resize_u8 on this path
+    zero = [k for k, v in launches.items() if v <= 0 and k != "resize_u8"]
     if zero:
         raise SystemExit(f"extraction: {zero} never launched: {launches}")
     for name in ("fused_bf16", "fused_int8", "shards", "exact"):
@@ -3466,6 +3779,32 @@ def image_leg(pose, frames, name) -> dict:
     return res, np.concatenate(all_boxes)
 
 
+def camera_leg(pose) -> dict:
+    """ImagePose (fused) on the decode fixtures' 1280x720 JPEG, decoded
+    without cv2: one resize_u8 launch takes it to its bucket on the card,
+    and the result equals a direct step on the frame resized by the CPU
+    plain version (served_reference, a batch of one)."""
+    from islx_torch.ops import resize_u8 as RZ
+    from islx_torch.serve.decode import decode
+
+    frame = decode(decode_fixtures()["camera_1280x720"][0])
+    before = RZ.resize_u8.launches
+    got = pose(frame)
+    launched = RZ.resize_u8.launches - before
+    with uncounted():
+        want = served_reference(pose.pipe, frame, 1)[:3]
+    if launched != 1 or not same_pose(got, want):
+        raise SystemExit(f"single image (camera 720p): {launched} resize_u8 "
+                         f"launches; result == a direct step on the plain "
+                         f"resize: {same_pose(got, want)}")
+    log(f"  ImagePose fused on a decoded 1280x720 JPEG: one resize_u8 "
+        f"launch, == a direct step on its plain resize ({len(got[0])} "
+        f"candidates, {len(got[1])} people, {len(got[2])} hands)")
+    return {"frame": list(frame.shape), "resize_u8_launches": launched,
+            "candidates": len(got[0]), "people": len(got[1]),
+            "hands": len(got[2]), "word_equal": True}
+
+
 def split_crops_match_cpu(frames, boxes, size) -> int:
     """The split path's crops (the host's boxes over the frames) cut on
     the card, word-equal to the CPU function's -> crops compared."""
@@ -3777,6 +4116,7 @@ def single_image(hand_cfg) -> dict:
     size = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
     res["split"]["crops_word_equal_cpu"] = split_crops_match_cpu(
         frames, boxes, size)
+    res["camera"] = camera_leg(fused)
 
     with uncounted():
         qb, qh = quantize_on(bp, hp, list(frames), hand_cfg, "cuda")
@@ -4970,7 +5310,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     names = ("nms_mask", "nms_first_k", "paf_sample", "cc_label", "conv_q",
-             "grouping")
+             "resize_u8", "grouping", "image_decode")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))   # a compiler a source
     log(f"[2] build: {', '.join(os.path.basename(r['path']) for r in built)} from "
@@ -5051,6 +5391,7 @@ def main(argv=None) -> int:
     cc_rows = check_cc_label(CC_CASES)
     conv_rows = check_conv_q()
     quant_rows = check_quantize()
+    resize_rows = check_resize_u8()
     torch.cuda.empty_cache()     # the plain versions' buffers: GBs at B=192
     if args.kernels:
         log("[7] labelling and PAF kernels, device ms per launch")
@@ -5060,7 +5401,8 @@ def main(argv=None) -> int:
                                   "nms_first_k": nfk_rows,
                                   "paf_sample": paf_rows, "cc_label": cc_rows,
                                   "conv_q": conv_rows,
-                                  "quantize": quant_rows},
+                                  "quantize": quant_rows,
+                                  "resize_u8": resize_rows},
                        "card": card, "seconds": time.perf_counter() - t_start})
 
     log("[4] fused pose step, full width, bf16")
@@ -5154,19 +5496,15 @@ def main(argv=None) -> int:
 
     def entry(name, source, replaces, launches, rows, main=0):
         bench = rows[main]
+        counter = "label_components" if name == "cc_label" else name
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "serving_launches": serve["launches"].get(name, 0),
-                "extraction_launches": extract["launches"][
-                    "label_components" if name == "cc_label" else name],
-                "single_image_launches": single["launches"][
-                    "label_components" if name == "cc_label" else name],
-                "tools_launches": tool["launches"][
-                    "label_components" if name == "cc_label" else name],
-                "mesh_launches": mesh["launches"][
-                    "label_components" if name == "cc_label" else name],
-                "aot_launches": aot["launches"][
-                    "label_components" if name == "cc_label" else name],
+                "extraction_launches": extract["launches"][counter],
+                "single_image_launches": single["launches"][counter],
+                "tools_launches": tool["launches"][counter],
+                "mesh_launches": mesh["launches"][counter],
+                "aot_launches": aot["launches"][counter],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "bit_equal": all(r["bit_equal"] for r in rows),
                 "ms": bench["ms"], "plain_ms": bench["plain_ms"],
@@ -5189,7 +5527,11 @@ def main(argv=None) -> int:
               conv_rows),
         entry("quantize", "islx_torch/csrc/conv_q.cu",
               "islx/models/quant.py:63", step_q["quantize_launches"],
-              quant_rows)],
+              quant_rows),
+        # not a TPU kernel: islx resizes served frames with cv2 on the host
+        entry("resize_u8", "islx_torch/csrc/resize_u8.cu",
+              "islx/serve/batcher.py:232", serve["launches"]["resize_u8"],
+              resize_rows, main=1)],
         "fused_step": [step184, step160, step_q], "select_step": step_sel,
         "translation": trans, "serving": serve, "extraction": extract,
         "training": train, "warm_starts": aot, "parity": parity,

@@ -65,34 +65,31 @@ def _calib_frames(calib_clip=None, calib_image=None, n: int = 2):
     return frames[::step][:n]
 
 
-def calib_inputs(frames, hand_cfg):
+def calib_inputs(frames, hand_cfg, device=None):
     """BGR u8 frames of one size -> (body batch [n,hb,wb,3], hand batch
     [n,s,s,3]) of normalized f32 net inputs (x/256 - 0.5): the frames
     resized to the body's 184-row bucket, and their centre squares to the
-    hand crop size, with cv2's u8 ``INTER_CUBIC``, as islx's gate resizes
-    them (``islx/cli/__init__.py::gated_int8_params``). cv2 is needed
-    here; where it is missing this raises (a calibration on other pixels
-    would give other activation scales)."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            "int8 calibration resizes its frames with cv2, as islx's gate "
-            "does, and cv2 is not installed") from e
+    hand crop size, with cv2's u8 ``INTER_CUBIC`` as islx's gate resizes
+    them (``islx/cli/__init__.py::gated_int8_params``), computed without
+    cv2 on ``device`` (the GPU unless the caller asks for the CPU;
+    :func:`islx_torch.ops.resize_u8.resize_frames`)."""
     import numpy as np
 
+    from islx_torch.core.runtime import resolve_device
+    from islx_torch.ops.resize_u8 import resize_frames
     from islx_torch.pipeline.batch_pose import bucket_for
 
+    dev = resolve_device(device)
     h0, w0 = np.asarray(frames[0]).shape[:2]
     hb, wb = bucket_for(h0, w0, target_h=184)
     hsize = int(np.rint(hand_cfg.scale_search[0] * hand_cfg.boxsize))
     s = min(h0, w0)
-    xcal = np.stack([cv2.resize(f, (wb, hb), interpolation=cv2.INTER_CUBIC)
-                     for f in frames]).astype(np.float32) / 256.0 - 0.5
-    hcal = np.stack([cv2.resize(
-        f[(h0 - s) // 2:(h0 + s) // 2, (w0 - s) // 2:(w0 + s) // 2],
-        (hsize, hsize), interpolation=cv2.INTER_CUBIC)
-        for f in frames]).astype(np.float32) / 256.0 - 0.5
+    xcal = resize_frames(list(frames), hb, wb, dev
+                         ).astype(np.float32) / 256.0 - 0.5
+    hcal = resize_frames(
+        [f[(h0 - s) // 2:(h0 + s) // 2, (w0 - s) // 2:(w0 + s) // 2]
+         for f in frames], hsize, hsize, dev
+    ).astype(np.float32) / 256.0 - 0.5
     return xcal, hcal
 
 
@@ -103,7 +100,7 @@ def quantize_states(body_params, hand_params, frames, hand_cfg,
     and quantize every conv -> (body, hand) quantized port states."""
     from islx_torch.models import quant
 
-    xcal, hcal = calib_inputs(frames, hand_cfg)
+    xcal, hcal = calib_inputs(frames, hand_cfg, device)
     return (quant.quantize_model(body_params, model_type, [xcal],
                                  device=device),
             quant.quantize_model(hand_params, "hand", [hcal], device=device))

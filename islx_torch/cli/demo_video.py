@@ -10,24 +10,30 @@ boxes on the device -> hand CPM), or the body pipeline alone with
            [--body-weights W] [--hand-weights W] [--per-frame] [--no-hands]
            [--model-type body25|coco] [--device cuda|cpu]
 
-cv2 decodes the clip and resizes the frames to their bucket.
+cv2 decodes the clip; each batch is uploaded once and resized to its
+bucket on the device (:func:`islx_torch.ops.resize_u8.upload_resized`).
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 
-def _bucket_batch(raw, hb: int, wb: int, batch: int) -> np.ndarray:
-    """Raw frames -> a fixed [batch,hb,wb,3] bucket (the tail repeats the
-    last frame)."""
-    from islx_torch.pipeline.batch_pose import bucket_resize
+def _bucket_batch(raw, hb: int, wb: int, batch: int, device
+                  ) -> torch.Tensor:
+    """Raw frames -> a fixed [batch,hb,wb,3] bucket on ``device`` (the tail
+    repeats the last frame): one upload and one resize a batch, as islx
+    resizes them."""
+    from islx_torch.core.runtime import resolve_device
+    from islx_torch.ops.resize_u8 import upload_resized
 
-    buf = [bucket_resize(f, hb, wb) for f in raw]
-    while len(buf) < batch:
-        buf.append(buf[-1])
-    return np.stack(buf)
+    frames = upload_resized(raw, hb, wb, resolve_device(device))
+    if len(raw) < batch:
+        frames = torch.cat([frames, frames[-1:].expand(
+            batch - len(raw), -1, -1, -1)])
+    return frames
 
 
 def _annotate_hands(canvas, frame, candidate, subset, hand):
@@ -127,12 +133,12 @@ def main(argv=None):
                 for f in src:
                     raw.append(f)
                     if len(raw) == args.batch:
-                        yield (_bucket_batch(raw, hb, wb, args.batch), raw,
-                               len(raw))
+                        yield (_bucket_batch(raw, hb, wb, args.batch,
+                                             args.device), raw, len(raw))
                         raw = []
                 if raw:
-                    yield _bucket_batch(raw, hb, wb, args.batch), raw, \
-                        len(raw)
+                    yield (_bucket_batch(raw, hb, wb, args.batch,
+                                         args.device), raw, len(raw))
 
             def annotate(packed, raw, n_valid):
                 nonlocal n_done

@@ -7,7 +7,8 @@
 Loads float weights (.npz/.pt/.caffemodel), samples ``--frames`` evenly
 spaced frames from the clip (bounded-memory stride sampling, as islx),
 prepares them as islx does (the 184-row bucket for the body nets, 368
-square for the hand net, cv2's ``INTER_CUBIC``, /256 - 0.5), records each
+square for the hand net, cv2's ``INTER_CUBIC`` computed without cv2 on
+``--device``, /256 - 0.5), records each
 conv's activation scale with the float net on ``--device`` and writes the
 quantized state to OUT, whose name ends in ``.pt``
 (:func:`islx_torch.core.weights.save_state`). Every CLI of the port takes
@@ -18,9 +19,8 @@ OUT wherever it takes weights:
 
 islx writes an orbax directory or a pickled treedef here, which needs JAX
 to read; the port's state is a ``torch.save`` file (ROADMAP.md §3).
-Decoding the clip needs cv2, and so does a frame that is not at its
-target size already; without cv2 this raises (a calibration on other
-pixels gives other scales).
+Decoding the clip needs cv2; the resize does not
+(:func:`islx_torch.ops.resize_u8.resize_frames`, word-equal to cv2's).
 """
 from __future__ import annotations
 
@@ -51,12 +51,14 @@ def sample_frames(clip: str, n_frames: int = 8) -> List[np.ndarray]:
     return picked[::step][:n_frames]
 
 
-def calibration_inputs(frames, model_type: str) -> np.ndarray:
+def calibration_inputs(frames, model_type: str, device=None) -> np.ndarray:
     """BGR u8 frames of one size -> normalized net inputs [n,H,W,3] f32:
     368x368 for the hand net, the 184-row bucket for a body net, resized
-    with cv2's ``INTER_CUBIC``. Frames already at that size are used as
-    they are (a same-size ``cv2.resize`` is an exact copy); any other
-    size needs cv2."""
+    as cv2's ``INTER_CUBIC`` on ``device`` (the GPU unless the caller asks
+    for the CPU). Frames already at that size are used as they are (a
+    same-size ``cv2.resize`` is an exact copy)."""
+    from islx_torch.core.runtime import resolve_device
+    from islx_torch.ops.resize_u8 import resize_frames
     from islx_torch.pipeline.batch_pose import bucket_for
 
     h0, w0 = np.asarray(frames[0]).shape[:2]
@@ -64,25 +66,16 @@ def calibration_inputs(frames, model_type: str) -> np.ndarray:
         hb = wb = 368
     else:
         hb, wb = bucket_for(h0, w0, target_h=184)
-    if (h0, w0) == (hb, wb):
-        out = [np.asarray(f) for f in frames]
-    else:
-        try:
-            import cv2
-        except ImportError as e:
-            raise RuntimeError(
-                f"calibration resizes {h0}x{w0} frames to {hb}x{wb} with "
-                f"cv2, as islx does, and cv2 is not installed") from e
-        out = [cv2.resize(f, (wb, hb), interpolation=cv2.INTER_CUBIC)
-               for f in frames]
-    return np.stack(out).astype(np.float32) / 256.0 - 0.5
+    out = resize_frames(list(frames), hb, wb, resolve_device(device))
+    return out.astype(np.float32) / 256.0 - 0.5
 
 
 def sample_calibration_inputs(clip: str, model_type: str,
-                              n_frames: int = 8) -> np.ndarray:
+                              n_frames: int = 8, device=None) -> np.ndarray:
     """-> normalized net inputs [n,H,W,3] f32 from evenly spaced frames
-    (islx's function of this name)."""
-    return calibration_inputs(sample_frames(clip, n_frames), model_type)
+    (islx's function of this name), resized on ``device``."""
+    return calibration_inputs(sample_frames(clip, n_frames), model_type,
+                              device)
 
 
 def quantize_to_file(state, model_type: str, xcal: np.ndarray, out: str,
@@ -119,7 +112,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     state = W.load(args.weights, args.model_type)
     xcal = sample_calibration_inputs(args.calib, args.model_type,
-                                     args.frames)
+                                     args.frames, device)
     path = quantize_to_file(state, args.model_type, xcal, args.out, device)
     q = W.load(path, args.model_type)
     n_q = sum(1 for e in q.values() if "w_q" in e)

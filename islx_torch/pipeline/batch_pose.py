@@ -195,11 +195,12 @@ def _on_mesh(mesh, device) -> Tuple[M.Mesh, torch.device]:
     return mesh, dev
 
 
-def _upload(mesh: M.Mesh, frames: np.ndarray):
-    """Frames to the device as flat u8, one buffer a data shard on its
-    own device; a flat host array goes whole to the first device (the
-    step splits it by frames)."""
-    frames = torch.from_numpy(np.ascontiguousarray(frames))
+def _upload(mesh: M.Mesh, frames):
+    """Frames (a host array, or a tensor on any device) to the device as
+    flat u8, one buffer a data shard on its own device; a flat buffer goes
+    whole to the first device (the step splits it by frames)."""
+    frames = (frames.contiguous() if isinstance(frames, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(frames)))
     if frames.dim() == 1:
         return frames.to(mesh.first)
     return M.batch_sharding(mesh).put_flat(frames.reshape(-1),
@@ -213,25 +214,6 @@ def _host(packed) -> np.ndarray:
 
 PAF_MODES = ("cell8", "cell", "vcell8", "fused", "take", "mxu", "exact")
 PACK_MODES = ("bits16", "bits", "nook", "flat")
-
-
-def bucket_resize(img: np.ndarray, hb: int, wb: int) -> np.ndarray:
-    """A frame resized to its bucket with cv2's ``INTER_CUBIC``, as islx
-    does. A frame already at its bucket size is returned as it is: a
-    same-size ``cv2.resize`` is an exact copy. Any other size needs cv2,
-    and raises without it (a u8 cubic resize word-equal to cv2's is
-    ROADMAP.md §1 item 2)."""
-    if img.shape[:2] == (hb, wb):
-        return img
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            f"a {img.shape[1]}x{img.shape[0]} frame needs cv2 to resize to "
-            f"its {wb}x{hb} bucket and cv2 is not installed; a cv2-free "
-            f"resize is ROADMAP.md §1 item 2 (pass frames at their bucket "
-            f"size)") from e
-    return cv2.resize(img, (wb, hb), interpolation=cv2.INTER_CUBIC)
 
 
 def detect_hand_boxes(results, hb: int, wb: int, orig_hw: Tuple[int, int],
@@ -456,7 +438,7 @@ class BatchedBodyPipeline:
             ls = self._limb_scores(paf_in, pk, hb, wb, multi)
             return pk, compact_connections(ls, self.top_m)
 
-    def upload_frames(self, frames: np.ndarray):
+    def upload_frames(self, frames):
         """A frame batch as flat u8 device buffers, one a data shard (the
         fused hand pipeline's ``from_frames`` reads the same upload)."""
         return _upload(self.mesh, frames)
@@ -477,12 +459,11 @@ class BatchedBodyPipeline:
 
     def device_step(self, frames, thre1: Optional[float] = None
                     ) -> torch.Tensor:
-        """frames u8 [B,Hb,Wb,3] (bucketed) -> packed buffer."""
+        """frames u8 [B,Hb,Wb,3] (bucketed; a host array, or a tensor on
+        any device) -> packed buffer."""
         b, hb, wb = frames.shape[:3]
-        flat = (frames.reshape(-1).to(self.device)
-                if isinstance(frames, torch.Tensor)
-                else self.upload_frames(frames))
-        return self.device_step_flat(flat, b, hb, wb, thre1)
+        return self.device_step_flat(self.upload_frames(frames), b, hb, wb,
+                                     thre1)
 
     # -- host ----------------------------------------------------------
 
@@ -796,9 +777,9 @@ class FusedPosePipeline:
             for key in [k for k in self._programs if k[1:3] == (hb, wb)]:
                 del self._programs[key]
 
-    def upload_frames(self, frames: np.ndarray):
-        """A frame batch (u8 BGR or I420 bytes) as flat device buffers, one
-        a data shard."""
+    def upload_frames(self, frames):
+        """A frame batch (u8 BGR or I420 bytes; a host array, or a tensor on
+        any device) as flat device buffers, one a data shard."""
         return _upload(self.mesh, frames)
 
     def _step(self, flat: torch.Tensor, b: int, hb: int, wb: int,
@@ -874,10 +855,12 @@ class FusedPosePipeline:
             return torch.cat([body, boxes.reshape(-1), hw.reshape(-1),
                               hv.reshape(-1)])
 
-    def device_step(self, frames: np.ndarray,
+    def device_step(self, frames,
                     orig_hw: Optional[Tuple[int, int]] = None,
                     thre1: Optional[float] = None) -> torch.Tensor:
-        """frames u8 [B,Hb,Wb,3] -> packed buffer (on the device)."""
+        """frames u8 [B,Hb,Wb,3] (a host array, or a tensor on any device,
+        as the batcher passes its resized batch) -> packed buffer (on the
+        device)."""
         b, hb, wb = frames.shape[:3]
         return self.device_step_flat(self.upload_frames(frames), b, hb, wb,
                                      orig_hw or (hb, wb), thre1)

@@ -14,9 +14,10 @@ Two modes:
 * ``fused=True``: one device pass a frame (:class:`FusedPosePipeline`:
   body CPM -> hand boxes on the device -> hand CPM), one crop per arm side.
 
-The bucket resize is cv2's ``INTER_CUBIC``, as in islx
-(:func:`islx_torch.pipeline.batch_pose.bucket_resize`): a frame already at
-its bucket size passes through unresized; any other size needs cv2.
+The frame is uploaded once and resized to its bucket there with cv2's
+``INTER_CUBIC``, as in islx, computed without cv2
+(:func:`islx_torch.ops.resize_u8.upload_resized`): a frame already at its
+bucket size passes through unresized.
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ import torch
 from islx_torch.core import weights as W
 from islx_torch.core.config import HandConfig, PoseConfig
 from islx_torch.core.runtime import resolve_device
+from islx_torch.ops.resize_u8 import upload_resized
 from islx_torch.pipeline.batch_pose import (BatchedBodyPipeline,
                                             BatchedHandPipeline,
                                             FusedPosePipeline, bucket_for,
-                                            bucket_resize, detect_hand_boxes)
+                                            detect_hand_boxes)
 
 
 class ImagePose:
@@ -80,7 +82,7 @@ class ImagePose:
         coordinates."""
         h0, w0 = img.shape[:2]
         hb, wb = bucket_for(h0, w0, target_h=184)
-        frames = bucket_resize(img, hb, wb)[None]
+        frames = upload_resized(img, hb, wb, self.device)
         sy, sx = h0 / hb, w0 / wb
         if self.fused:
             packed = self.pipe.device_step(frames, (h0, w0))

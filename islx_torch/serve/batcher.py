@@ -17,10 +17,11 @@ shape the float pipeline served, and hands the pipeline to the worker, which
 switches between batches. On the GPU that thread works on its own CUDA
 stream, so calibration never queues in front of request steps.
 
-cv2 is imported only where a frame's size differs from its target (a
-request frame and its bucket, a calibration frame and the hand crop size):
-a same-size cv2 resize is a copy, so a frame already at its size is used
-as it is.
+A batch's frames are uploaded once, as they came, and resized to their
+bucket on the device by :func:`islx_torch.ops.resize_u8.resize_u8` (cv2's
+``INTER_CUBIC``, word for word, without cv2), then padded there; the
+calibration frames are resized to the hand crop size the same way. A frame
+already at its target size is used as it is.
 """
 from __future__ import annotations
 
@@ -36,19 +37,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from islx_torch.ops.resize_u8 import resize_frames, upload_resized
 from islx_torch.pipeline.batch_pose import bucket_for
 
 _log = logging.getLogger(__name__)
-
-
-def resize_bgr(frame: np.ndarray, h: int, w: int) -> np.ndarray:
-    """u8 BGR frame -> (h, w) by cv2's INTER_CUBIC, as islx serves it; a
-    frame already (h, w) is returned as it is (the resize would copy it)."""
-    if frame.shape[:2] == (h, w):
-        return frame
-    import cv2
-
-    return cv2.resize(frame, (w, h), interpolation=cv2.INTER_CUBIC)
 
 
 class PoseResult:
@@ -247,12 +239,16 @@ class MicroBatcher:
         h0, w0 = hw0
         hb, wb = bucket_for(h0, w0, target_h=self.target_h)
         self._touch_resolution(hb, wb)
-        frames = np.empty((self.max_batch, hb, wb, 3), np.uint8)
-        for i, (frame, _) in enumerate(batch):
-            frames[i] = resize_bgr(frame, hb, wb)
-        frames[len(batch):] = frames[0]          # pad to max_batch
+        # one upload of the batch as it came (one resolution), the bucket
+        # resize and the padding to max_batch on the device
+        n = len(batch)
+        frames = upload_resized([f for f, _ in batch], hb, wb,
+                                self.pipe.device)
+        if n < self.max_batch:
+            frames = torch.cat([frames, frames[:1].expand(
+                self.max_batch - n, -1, -1, -1)])
         if self.quantize_after is not None and not self._quant_started:
-            self._sample_for_calibration(frames, len(batch), hw0)
+            self._sample_for_calibration(frames, n, hw0)
         packed = self.pipe.device_step(frames, (h0, w0))
         results, boxes, peaks = self.pipe.assemble(packed, self.max_batch)
         sy, sx = h0 / hb, w0 / wb
@@ -279,17 +275,21 @@ class MicroBatcher:
             self._stats["frames_padded"] += self.max_batch - len(batch)
 
     def _sample_for_calibration(self, frames, n, hw0) -> None:
-        """Keep up to _CALIB_KEEP served frames of the first-seen bucket and
-        start the swap once quantize_after frames were served."""
+        """Keep up to _CALIB_KEEP served frames of the first-seen bucket
+        (bucket-sized host copies of the device batch ``frames``; only
+        those kept are copied back) and start the swap once quantize_after
+        frames were served."""
         self._calib_seen += n
+        shape = tuple(frames.shape[1:])
         if (not self._calib_frames
-                or self._calib_frames[0].shape == frames[0].shape):
+                or self._calib_frames[0].shape == shape):
             if not self._calib_frames:
                 # the swap's warm-up steps the key real traffic at this
                 # resolution records (its scales come from hw0)
                 self._calib_hw0 = hw0
             room = max(self._CALIB_KEEP - len(self._calib_frames), 0)
-            self._calib_frames.extend(frames[i] for i in range(min(n, room)))
+            if min(n, room):
+                self._calib_frames.extend(frames[:min(n, room)].cpu().numpy())
         if self._calib_seen >= self.quantize_after:
             self._quant_started = True
             calib, self._calib_frames = self._calib_frames, []
@@ -355,8 +355,8 @@ class MicroBatcher:
         xcal = np.stack(calib_frames).astype(np.float32) / 256.0 - 0.5
         size = int(np.rint(old.hand.cfg.scale_search[0]
                            * old.hand.cfg.boxsize))
-        hcal = np.stack([resize_bgr(f, size, size) for f in calib_frames]
-                        ).astype(np.float32) / 256.0 - 0.5
+        hcal = resize_frames(calib_frames, size, size, old.device).astype(
+            np.float32) / 256.0 - 0.5
         cd = old.body.compute_dtype
         bq = quant.quantize_model(old.body.params, old.model_type,
                                   self._chunks(xcal), compute_dtype=cd,

@@ -5,10 +5,12 @@
     GET  /healthz   liveness and the batcher's stats -> JSON {ok, ...}
 
 A body over 32 MB (or empty) gets 413 after a bounded drain, an image
-cv2 cannot decode 400, any other path 404. Requests go through one
+that does not decode 400, any other path 404. Requests go through one
 :class:`islx_torch.serve.batcher.MicroBatcher`, so concurrent clients share
 fused steps; ThreadingHTTPServer gives each connection a thread, and all
-device work stays on the batcher's worker. Decoding a POST body needs cv2.
+device work stays on the batcher's worker. Bodies are decoded without cv2
+by :func:`islx_torch.serve.decode.decode` (PNG and baseline JPEG, what
+cv2.imdecode gives for them), on the handler's thread without the GIL.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Optional
 import numpy as np
 
 from islx_torch.serve.batcher import MicroBatcher
+from islx_torch.serve.decode import decode
 
 MAX_BODY = 32 * 1024 * 1024
 
@@ -33,13 +36,6 @@ def _json_bytes(obj) -> bytes:
         raise TypeError(type(o))
 
     return json.dumps(obj, default=default).encode()
-
-
-def _decode(data: bytes) -> Optional[np.ndarray]:
-    """Image bytes -> u8 BGR frame, or None where cv2 cannot decode them."""
-    import cv2
-
-    return cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
 
 
 class PoseServer:
@@ -95,11 +91,7 @@ class PoseServer:
                         left -= len(chunk)
                     self._reply(413, b'{"error": "body must be 1B-32MB"}')
                     return
-                try:
-                    img = _decode(self.rfile.read(n))
-                except ImportError:
-                    self._reply(500, b'{"error": "decoding needs cv2"}')
-                    return
+                img = decode(self.rfile.read(n))
                 if img is None:
                     self._reply(400, b'{"error": "undecodable image"}')
                     return

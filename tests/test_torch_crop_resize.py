@@ -242,3 +242,44 @@ def test_every_serving_bucket_is_probed(size):
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     print(probe_orders(*map(int, sys.argv[1:4])))
+
+
+@pytest.mark.parametrize("size", [160, 184])
+def test_every_bucket_width_of_the_rule_is_silent(size):
+    """Every width ``bucket_for`` gives at 184 rows up to RULE_MAX_W (each
+    multiple of 8 from 8 to 648: a frame from aspect 1:23 to 3.52:1, which
+    any camera size reaches now that frames are resized to their bucket on
+    the card) has an order for both dots at both hand crop sizes, with no
+    warning."""
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    assert bucket_for(1840, 80)[1] == 8
+    assert bucket_for(184, 648)[1] == TR.RULE_MAX_W
+    frames = torch.zeros(1, 184, TR.RULE_MAX_W, 3, dtype=torch.uint8)
+    box = [torch.zeros(1, dtype=torch.int32)] * 3 + [
+        torch.full((1,), 9, dtype=torch.int32)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for w in range(8, TR.RULE_MAX_W + 1, 8):
+            assert TR._sum_order((size, w * 3, 184),
+                                 TR._first_order(size, w, 3, 184)) in (
+                TR.CHAIN, TR.EVEN_ODD, TR.MOD4), w
+            assert TR._sum_order((size * 3, size, w),
+                                 TR._second_order(size, 3, w)) in (
+                TR.CHAIN, TR.EVEN_ODD, TR.MOD4), w
+            TR.dynamic_crop_resize_batch(frames[:, :, :w], *box, size)
+
+
+@pytest.mark.parametrize("size", [160, 184])
+def test_bucket_wider_than_the_rule_warns(size):
+    """A frame wider than aspect 3.52 (1280x360: a 656-wide bucket) is
+    outside the rule: its crops sum as a chain and warn, as documented."""
+    from islx_torch.pipeline.batch_pose import bucket_for
+
+    hb, wb = bucket_for(360, 1280)
+    assert (hb, wb) == (184, 656) and wb > TR.RULE_MAX_W
+    frames = torch.zeros(1, hb, wb, 3, dtype=torch.uint8)
+    box = [torch.zeros(1, dtype=torch.int32)] * 3 + [
+        torch.full((1,), 9, dtype=torch.int32)]
+    with pytest.warns(UserWarning, match="no probed summation order"):
+        TR.dynamic_crop_resize_batch(frames, *box, size)

@@ -83,7 +83,8 @@ def test_calib_inputs_word_equal(tmp_path, h, w, scale):
     assert len(frames) == len(jframes) == 2
     for a, b in zip(frames, jframes):
         np.testing.assert_array_equal(a, b)
-    got = TGate.calib_inputs(frames, HandConfig(scale_search=(scale,)))
+    got = TGate.calib_inputs(frames, HandConfig(scale_search=(scale,)),
+                             device="cpu")
     want = islx_calib_inputs(jframes, JHand(scale_search=(scale,)))
     for g, wnt in zip(got, want):
         assert g.dtype == wnt.dtype == np.float32
@@ -92,8 +93,20 @@ def test_calib_inputs_word_equal(tmp_path, h, w, scale):
 
 
 def test_calib_inputs_refuse_without_cv2(monkeypatch):
+    """Without cv2 the calibration inputs are built all the same, word-equal
+    to cv2's INTER_CUBIC resizes of the frames and of their centre squares
+    (the port's resize_u8 resizes them)."""
     import builtins
 
+    import cv2
+
+    frame = (np.random.RandomState(3).rand(60, 80, 3) * 255).astype(np.uint8)
+    cfg = HandConfig(scale_search=(0.25,))
+    hb, wb = bucket_for(60, 80, target_h=184)
+    size = int(np.rint(cfg.scale_search[0] * cfg.boxsize))
+    want = [cv2.resize(x, (w, h), interpolation=cv2.INTER_CUBIC)[None]
+            .astype(np.float32) / 256.0 - 0.5
+            for x, h, w in ((frame, hb, wb), (frame[:, 10:70], size, size))]
     real = builtins.__import__
 
     def no_cv2(name, *a, **k):
@@ -102,8 +115,9 @@ def test_calib_inputs_refuse_without_cv2(monkeypatch):
         return real(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_cv2)
-    with pytest.raises(RuntimeError, match="cv2"):
-        TGate.calib_inputs([np.zeros((8, 8, 3), np.uint8)], HandConfig())
+    got = TGate.calib_inputs([frame], cfg, device="cpu")
+    for g, w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
 
 
 def test_gate_scales_match_islx(tmp_path, monkeypatch):

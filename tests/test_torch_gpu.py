@@ -365,3 +365,30 @@ def test_quantize_bit_equal_on_card(shape, dtype):
                 torch.cuda.synchronize()
                 assert CQ.quantize.launches == before + 1
                 assert torch.equal(got, CQ.quantize_plain(inp, inv, p))
+
+
+@pytest.mark.gpu
+def test_resize_u8_kernel_bit_equal_on_card():
+    """The sm_90a bicubic resize == its plain version on the card and on the
+    CPU, word for word: camera frames to their buckets, the calibration's
+    square, upscales and a ragged shape; it counts its launches and refuses
+    a strided batch."""
+    _need_gpu()
+    from islx_torch.ops import resize_u8 as R
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (h, w), (oh, ow) in [((480, 640), (184, 248)),
+                             ((720, 1280), (184, 328)),
+                             ((184, 328), (184, 184)), ((97, 131), (61, 203)),
+                             ((5, 7), (184, 184)), ((1, 1), (3, 3))]:
+        x = torch.randint(0, 256, (3, h, w, 3), dtype=torch.uint8,
+                          device="cuda", generator=g)
+        before = R.resize_u8.launches
+        got = R.resize_u8(x, oh, ow)
+        torch.cuda.synchronize()
+        assert R.resize_u8.launches == before + 1
+        assert torch.equal(got, R.resize_u8_plain(x, oh, ow))
+        assert torch.equal(got.cpu(), R.resize_u8_plain(x.cpu(), oh, ow))
+    strided = torch.zeros(2, 8, 10, 3, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        R.resize_u8(strided[:, :, ::2], 4, 4)

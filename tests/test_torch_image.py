@@ -134,7 +134,12 @@ def test_image_pose_matches_islx(params, mt, fused):
 
 def test_same_size_frames_need_no_cv2(params, monkeypatch):
     """Without cv2 a frame at its bucket's size runs (the same result as
-    with cv2); any other size raises, naming the cv2-free resize item."""
+    with cv2), and so does a 200x150 frame: its bucket resize is word-equal
+    to cv2's INTER_CUBIC (the port's resize_u8)."""
+    import cv2
+
+    from islx_torch.ops.resize_u8 import upload_resized
+
     body_net, hand_net = islx_nets(params, "body25")
     tpose = ImagePose(W.init_params("body25"), W.init_params("hand"),
                       compute_dtype=torch.float32, hand_cfg=HandConfig(**HAND),
@@ -142,13 +147,19 @@ def test_same_size_frames_need_no_cv2(params, monkeypatch):
     tpose.body.cfg = PoseConfig(max_peaks=16, thre2=-0.5, thre1=0.05)
     tpose.body.net, tpose.hand.net = body_net, hand_net
     frame = _frame(2)
+    other = (np.random.RandomState(3).rand(200, 150, 3) * 255).astype(
+        np.uint8)
     with_cv2 = tpose(frame)
+    other_with_cv2 = tpose(other)
+    want = cv2.resize(other, (144, 184), interpolation=cv2.INTER_CUBIC)
     monkeypatch.setitem(sys.modules, "cv2", None)   # import cv2 fails
     without = tpose(frame)
     for a, b in zip(with_cv2[:2], without[:2]):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(RuntimeError, match="item 2"):
-        tpose(np.zeros((200, 150, 3), np.uint8))
+    np.testing.assert_array_equal(
+        upload_resized(other, 184, 144, "cpu")[0].numpy(), want)
+    for a, b in zip(other_with_cv2[:2], tpose(other)[:2]):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         ImagePose()

@@ -357,6 +357,55 @@ def test_fused_step_on_mesh(monkeypatch, jmesh, tmesh):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def test_served_batch_resized_then_sharded_as_uploaded(tmesh, monkeypatch):
+    """The batcher on a meshed pipeline, frames off their bucket's size:
+    the batch is uploaded once, resized on the mesh's first device
+    (resize_u8), and its shards reach their devices as ``upload_frames``
+    places host frames that were resized there: equal shards, on the same
+    devices, and the served results equal a direct step's."""
+    from islx_torch.ops.resize_u8 import resize_frames
+    from islx_torch.serve import MicroBatcher
+
+    kw = dict(model_type="body25",
+              pose_cfg=PoseConfig(model_type="body25", max_peaks=8,
+                                  thre1=0.05),
+              hand_cfg=HandConfig(scale_search=(0.25,)),
+              compute_dtype=torch.float32)
+    sharded = TBP.FusedPosePipeline(W.init_params("body25"),
+                                    W.init_params("hand"), mesh=tmesh, **kw)
+    rng = np.random.RandomState(4)
+    frames = [(rng.rand(60, 80, 3) * 255).astype(np.uint8) for _ in range(8)]
+    hb, wb = TBP.bucket_for(60, 80, target_h=48)
+    shards = []
+    real = TBP.FusedPosePipeline.device_step_flat
+
+    def recording(self, flat, b, hb, wb, *a, **k):
+        shards.append(M.batch_sharding(self.mesh).put_flat(flat, b))
+        return real(self, flat, b, hb, wb, *a, **k)
+
+    monkeypatch.setattr(TBP.FusedPosePipeline, "device_step_flat", recording)
+    b = MicroBatcher(sharded, max_batch=8, max_wait_ms=2000.0, target_h=48)
+    try:
+        got = [f.result(timeout=600) for f in [b.submit(f) for f in frames]]
+    finally:
+        b.close()
+    monkeypatch.setattr(TBP.FusedPosePipeline, "device_step_flat", real)
+    assert b.stats()["batches"] == 1 and len(shards) == 1
+    resized = resize_frames(frames, hb, wb, "cpu")
+    want = sharded.upload_frames(resized)
+    assert len(shards[0]) == len(want) == 4
+    for g, w in zip(shards[0], want):
+        assert g.device == w.device
+        assert torch.equal(g, w)
+    results = sharded.assemble(sharded.device_step(resized, (60, 80)), 8)
+    for r, (cand, subset) in zip(got, results[0]):
+        cand = cand.copy()
+        cand[:, 0] *= 80 / wb
+        cand[:, 1] *= 60 / hb
+        np.testing.assert_array_equal(r.candidate, cand)
+        np.testing.assert_array_equal(r.subset, subset)
+
+
 def test_cross_shard_crop_gather_exact(tmesh):
     """Every crop names a frame another shard holds (frame index
     reversed): each shard gathers those frames, and its crops equal the

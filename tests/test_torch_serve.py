@@ -111,7 +111,7 @@ def _record_steps(cls, monkeypatch):
         out = real(self, frames, orig_hw, thre1)
         packed = out.numpy() if isinstance(out, torch.Tensor) else \
             np.asarray(out)
-        steps.append((frames.copy(), packed))
+        steps.append((np.array(frames), packed))
         return out
 
     monkeypatch.setattr(cls, "device_step", recording)
@@ -483,7 +483,7 @@ def test_served_coco_burst_equals_direct_steps(monkeypatch, coco_params):
 
     def recording(self, frames, orig_hw=None, thre1=None):
         out = real(self, frames, orig_hw, thre1)
-        calls.append((frames.copy(), orig_hw, thre1, out.numpy()))
+        calls.append((np.array(frames), orig_hw, thre1, out.numpy()))
         return out
 
     monkeypatch.setattr(TBP.FusedPosePipeline, "device_step", recording)

@@ -143,7 +143,7 @@ def clip(tmp_path_factory):
 @pytest.mark.parametrize("model_type,n", [("hand", 8), ("body25", 3),
                                           ("coco", 16)])
 def test_calibration_inputs_word_equal(clip, model_type, n):
-    got = TQCLI.sample_calibration_inputs(clip, model_type, n)
+    got = TQCLI.sample_calibration_inputs(clip, model_type, n, device="cpu")
     want = JQCLI.sample_calibration_inputs(clip, model_type, n)
     assert got.dtype == want.dtype == np.float32
     assert got.shape == want.shape
@@ -151,17 +151,26 @@ def test_calibration_inputs_word_equal(clip, model_type, n):
 
 
 def test_calibration_inputs_at_size_need_no_cv2(monkeypatch):
-    """Frames at the target size pass without cv2 (a same-size resize is a
-    copy); another size raises without it."""
+    """Without cv2, frames at the target size pass as they are (a
+    same-size resize is a copy), and frames of another size are resized
+    word-equal to cv2's INTER_CUBIC (the port's resize_u8)."""
     import sys
 
+    import cv2
+
+    from islx_torch.pipeline.batch_pose import bucket_for
+
     frames = _frames(1, [(368, 368)] * 2)
-    with_cv2 = TQCLI.calibration_inputs(frames, "hand")
+    other = _frames(2, [(240, 320)] * 2)
+    hb, wb = bucket_for(240, 320, target_h=184)
+    with_cv2 = TQCLI.calibration_inputs(frames, "hand", device="cpu")
+    want = np.stack([cv2.resize(f, (wb, hb), interpolation=cv2.INTER_CUBIC)
+                     for f in other]).astype(np.float32) / 256.0 - 0.5
     monkeypatch.setitem(sys.modules, "cv2", None)
-    assert TQCLI.calibration_inputs(frames, "hand").tobytes() == \
-        with_cv2.tobytes()
-    with pytest.raises(RuntimeError, match="cv2"):
-        TQCLI.calibration_inputs(frames, "body25")
+    assert TQCLI.calibration_inputs(frames, "hand", device="cpu"
+                                    ).tobytes() == with_cv2.tobytes()
+    assert TQCLI.calibration_inputs(other, "body25", device="cpu"
+                                    ).tobytes() == want.tobytes()
 
 
 def test_quantize_cli_matches_islx_and_steps_its_words(
@@ -198,7 +207,7 @@ def test_quantize_cli_matches_islx_and_steps_its_words(
 
     qb = W.load(str(tmp_path / "body-int8.pt"), "body25")
     qh = W.load(str(tmp_path / "hand-int8.pt"), "hand")
-    xb = TQCLI.sample_calibration_inputs(clip, "body25", 2)
+    xb = TQCLI.sample_calibration_inputs(clip, "body25", 2, device="cpu")
     jqb = JQ.quantize_params(body, islx_scales["body25"])
     jqh = JQ.quantize_params(hand, islx_scales["hand"])
     for mt, got, want in (("body25", qb, jqb), ("hand", qh, jqh)):
